@@ -1,0 +1,292 @@
+"""High-level PageANN index: build / search / save (Fig. 3 pipeline).
+
+Port of ``repro.core.index`` for the fully resident index. Pre-processing:
+Vamana vector graph -> page-node grouping (Alg. 1) -> PQ codebooks (coarse
+on-page + fine in-memory) -> id reassignment + page packing (Sec 4.2/5) ->
+LSH routing index -> memory-disk coordination (Sec 4.3) with optional
+warm-up page caching. ``search`` runs ``core.search.batch_search`` on the
+index's device and translates results back to original vector ids.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import layout as layout_mod
+from repro_torch.core import lsh as lsh_mod
+from repro_torch.core import page_graph as pg_mod
+from repro_torch.core import pq as pq_mod
+from repro_torch.core import search as search_mod
+from repro_torch.core import vamana as vamana_mod
+from repro_torch.core.config import PageANNConfig, SearchParams, resolve_search_params
+from repro_torch.device import resolve_device
+
+PAD = -1
+
+
+@dataclasses.dataclass
+class BuildStats:
+    vamana_s: float
+    grouping_s: float
+    pq_s: float
+    pack_s: float
+    lsh_s: float
+    pages: int
+    capacity: int
+    mean_page_degree: float
+    logical_page_bytes: int
+    padded_tile_bytes: int
+    memory_bytes: int
+    # total bytes of the disk tier: the projected pages.bin size for a
+    # freshly built index, the file's actual size for a loaded one
+    disk_bytes: int = 0
+    # page records pinned on the device and their bytes (the whole store:
+    # the port has no streamed tier yet)
+    resident_pages: int = 0
+    resident_bytes: int = 0
+
+
+@dataclasses.dataclass
+class PageANNIndex:
+    cfg: PageANNConfig
+    store: layout_mod.PageStore
+    tier: layout_mod.MemoryTier
+    lsh: lsh_mod.LSHIndex
+    data: search_mod.SearchData
+    stats: BuildStats
+    device: torch.device
+    # full residency priority, hottest page first (warm_cache access
+    # counts); persisted so the reference's budgeted load can pin by it
+    page_order: np.ndarray | None = None
+
+    # ------------------------------------------------------------------ build
+    @staticmethod
+    def build(
+        x: np.ndarray,
+        cfg: PageANNConfig,
+        mem_subspaces: int | None = None,
+        warmup_queries: np.ndarray | None = None,
+        *,
+        device: str | torch.device = "cuda",
+    ) -> "PageANNIndex":
+        """Build an index over ``x`` (N, d). The greedy searches of the
+        Vamana build, PQ training and encoding run on ``device``; graph
+        pruning, page grouping and packing run on the host."""
+        dev = resolve_device(device)
+        x = np.ascontiguousarray(x, np.float32)
+        n, d = x.shape
+        if d != cfg.dim:
+            raise ValueError(f"vectors have dim {d}, config says {cfg.dim}")
+
+        t0 = time.perf_counter()
+        nbrs = vamana_mod.build_vamana(
+            x,
+            degree=cfg.graph_degree,
+            beam=cfg.build_beam,
+            alpha=cfg.alpha,
+            rounds=cfg.build_rounds,
+            seed=cfg.seed,
+            device=dev,
+        )
+        t1 = time.perf_counter()
+
+        capacity = cfg.resolve_capacity()
+        grouping = pg_mod.group_pages(x, nbrs, capacity, cfg.hop_h)
+        page_nbrs_old = pg_mod.derive_page_edges(x, nbrs, grouping, cfg.page_degree)
+        t2 = time.perf_counter()
+
+        # coarse codes travel on-page; fine codes live in the memory tier
+        m_disk = cfg.pq_subspaces
+        m_mem = mem_subspaces or min(d, 2 * m_disk)
+        disk_books = pq_mod.train_pq(
+            x, m_disk, cfg.pq_ksub, cfg.pq_iters, seed=cfg.seed, device=dev
+        )
+        mem_books = pq_mod.train_pq(
+            x, m_mem, cfg.pq_ksub, cfg.pq_iters, seed=cfg.seed + 1, device=dev
+        )
+        disk_books_t = torch.as_tensor(disk_books).to(dev)
+        mem_books_t = torch.as_tensor(mem_books).to(dev)
+        disk_codes_old = pq_mod.pq_encode(
+            torch.as_tensor(x).to(dev), disk_books_t
+        ).cpu().numpy()
+        t3 = time.perf_counter()
+
+        store = layout_mod.pack_pages(
+            x, grouping, page_nbrs_old, disk_codes_old, cfg, device=dev
+        )
+        x_new = torch.as_tensor(layout_mod.reassigned_vectors(store)).to(dev)
+        mem_codes_new = pq_mod.pq_encode(x_new, mem_books_t).cpu().numpy()
+        t4 = time.perf_counter()
+
+        lsh = lsh_mod.build_lsh(
+            x_new.cpu().numpy(),
+            pq_mod.pq_encode(x_new, disk_books_t).cpu().numpy(),
+            bits=cfg.lsh_bits,
+            sample=cfg.lsh_sample,
+            seed=cfg.seed,
+            device=dev,
+        )
+        t5 = time.perf_counter()
+
+        tier = layout_mod.build_memory_tier(
+            mem_codes_new, mem_books, disk_books, cfg.memory_mode, device=dev
+        )
+        tile = store.padded_tile_bytes()
+        idx = PageANNIndex(
+            cfg=cfg,
+            store=store,
+            tier=tier,
+            lsh=lsh,
+            data=search_mod.make_search_data(store, tier, lsh),
+            stats=BuildStats(
+                vamana_s=t1 - t0,
+                grouping_s=t2 - t1,
+                pq_s=t3 - t2,
+                pack_s=t4 - t3,
+                lsh_s=t5 - t4,
+                pages=store.num_pages,
+                capacity=capacity,
+                mean_page_degree=pg_mod.page_graph_stats(
+                    store.nbr_ids.cpu().numpy()
+                )["mean_degree"],
+                logical_page_bytes=store.logical_page_bytes(cfg),
+                padded_tile_bytes=tile,
+                memory_bytes=tier.memory_bytes + lsh.memory_bytes,
+                disk_bytes=store.num_pages * tile,
+                resident_pages=store.num_pages,
+                resident_bytes=store.num_pages * tile,
+            ),
+            device=dev,
+        )
+        if warmup_queries is not None and cfg.cache_pages > 0:
+            idx.warm_cache(warmup_queries)
+        return idx
+
+    # ------------------------------------------------------------ properties
+    @property
+    def dim(self) -> int:
+        return self.cfg.dim
+
+    @property
+    def default_params(self) -> SearchParams:
+        """The runtime parameter set searches resolve when none is given:
+        the build config's knobs."""
+        return SearchParams.from_config(self.cfg)
+
+    def resolve_params(
+        self, k: int | None, params: SearchParams | None
+    ) -> SearchParams:
+        return resolve_search_params(self.default_params, k, params)
+
+    # ------------------------------------------------------------------ cache
+    def warm_cache(self, queries: np.ndarray, params: SearchParams | None = None) -> None:
+        """Sec 4.3: run a warm-up batch, cache the hottest pages.
+
+        Also records the full access ordering over all pages as
+        ``page_order`` (accessed pages by descending count, then the never-
+        accessed rest in id order)."""
+        p = self.resolve_params(None, params)
+        ids = self._raw_search(self._queries(queries), p).ids.cpu().numpy()
+        pages = ids // self.store.capacity
+        pages = pages[ids >= 0]
+        uniq, counts = np.unique(pages, return_counts=True)
+        by_heat = uniq[np.argsort(-counts)].astype(np.int32)
+        hot = by_heat[: self.cfg.cache_pages]
+        cold = np.setdiff1d(
+            np.arange(self.store.num_pages, dtype=np.int32), by_heat
+        )
+        self.page_order = np.concatenate([by_heat, cold])
+        self.tier = dataclasses.replace(
+            self.tier,
+            cached_pages=torch.as_tensor(np.sort(hot).astype(np.int32)).to(self.device),
+        )
+        self.data = search_mod.make_search_data(self.store, self.tier, self.lsh)
+
+    # ----------------------------------------------------------------- search
+    def _queries(self, queries) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
+
+    def _raw_search(
+        self, q: torch.Tensor, params: SearchParams, impl: str | None = None
+    ) -> search_mod.SearchResult:
+        return search_mod.batch_search(
+            q, self.data, params,
+            capacity=self.store.capacity,
+            mode=self.cfg.memory_mode.value,
+            impl=impl,
+        )
+
+    def translate_ids(self, ids: np.ndarray) -> np.ndarray:
+        """Reassigned (page-packed) vector ids -> original ids, PAD kept."""
+        ids = np.asarray(ids)
+        valid = ids >= 0
+        old = np.full_like(ids, PAD)
+        old[valid] = self.store.new_to_old[ids[valid]]
+        return old
+
+    def search(
+        self,
+        queries: np.ndarray,
+        k: int | None = None,
+        params: SearchParams | None = None,
+        *,
+        filter=None,
+        impl: str | None = None,
+    ) -> search_mod.SearchResult:
+        """Search; returns ORIGINAL vector ids as numpy arrays.
+
+        ``params`` supplies the runtime knobs (defaults come from the build
+        config); ``k`` overrides ``params.k`` when given. ``impl="plain"``
+        runs the kernels' plain versions on the index's device (for
+        comparing the two; the default runs the kernels on a GPU).
+        """
+        if filter is not None:
+            raise NotImplementedError(
+                "filtered search is not ported yet: ROADMAP queue A, item 6"
+            )
+        p = self.resolve_params(k, params)
+        res = self._raw_search(self._queries(queries), p, impl=impl)
+        return search_mod.SearchResult(
+            ids=self.translate_ids(res.ids.cpu().numpy()),
+            dists=res.dists.cpu().numpy(),
+            ios=res.ios.cpu().numpy(),
+            hops=res.hops.cpu().numpy(),
+            cache_hits=res.cache_hits.cpu().numpy(),
+        )
+
+    # -------------------------------------------------------------- lifecycle
+    def save(self, directory: str) -> None:
+        """Persist to ``directory`` in the reference's artifact format."""
+        from repro_torch.core import persist
+
+        persist.save_pageann(self, directory)
+
+    @classmethod
+    def load(cls, directory: str, *, device: str | torch.device = "cuda",
+             memory_budget=None) -> "PageANNIndex":
+        """Reload a saved index (saved by this package or the reference)."""
+        from repro_torch.core import persist
+
+        return persist.load_pageann(
+            directory, device=device, memory_budget=memory_budget
+        )
+
+
+def recall_at_k(found_ids: np.ndarray, truth_ids: np.ndarray) -> float:
+    """Mean recall@k over a query batch (paper's Recall@10 metric).
+
+    Set semantics per row (duplicates counted once on both sides, PAD ids
+    included verbatim): a truth entry scores iff it appears anywhere in the
+    found row and is the first occurrence of its value within the truth row.
+    """
+    found = np.asarray(found_ids)
+    truth = np.asarray(truth_ids)
+    q, k = truth.shape
+    present = (truth[:, :, None] == found[:, None, :]).any(-1)     # (Q, k)
+    j = np.arange(k)
+    dup = ((truth[:, :, None] == truth[:, None, :])
+           & (j[None, None, :] < j[None, :, None])).any(-1)        # (Q, k)
+    return float((present & ~dup).sum() / (q * k))

@@ -1,0 +1,301 @@
+"""On-disk index persistence: port of ``repro.core.persist`` for
+``kind="pageann"``, fully resident.
+
+The artifact is the reference's, byte for byte in layout:
+
+  <dir>/manifest.json   versioned JSON: kind, config, geometry, build stats
+  <dir>/pages.bin       the packed page records as raw page-aligned f32
+  <dir>/arrays.npz      numpy sidecars: memory tier, LSH router, id maps,
+                        per-page counts and neighbour ids
+
+It is framework-neutral, so ``load_pageann`` is how an index built and
+saved by the JAX package reaches the port (and the reverse through
+``save_pageann``). uint32 LSH codes are stored as uint32 and held in torch
+as int32 views of the same bits. Unreadable artifacts raise
+:class:`IndexFormatError` as the reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.core import layout as layout_mod
+from repro_torch.core import page_graph as pg_mod
+from repro_torch.core import search as search_mod
+from repro_torch.core.config import MemoryMode, PageANNConfig
+from repro_torch.core.lsh import LSHIndex
+from repro_torch.device import resolve_device
+
+FORMAT = "repro.vector_index"
+VERSION = 1
+
+MANIFEST = "manifest.json"
+PAGES_BIN = "pages.bin"
+ARRAYS_NPZ = "arrays.npz"
+META_NPZ = "meta.npz"
+
+
+class IndexFormatError(ValueError):
+    """A saved index artifact this library cannot read: corrupted or
+    truncated files, a missing/garbled manifest, or a format version ahead
+    of what this build supports."""
+
+
+def write_manifest(directory: str, doc: dict) -> None:
+    doc = dict(doc, format=FORMAT, version=VERSION)
+    with open(os.path.join(directory, MANIFEST), "w") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+
+
+def read_manifest(directory: str) -> dict:
+    path = os.path.join(directory, MANIFEST)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no index manifest at {path}")
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except json.JSONDecodeError as e:
+        raise IndexFormatError(f"{path}: manifest is not valid JSON: {e}")
+    if doc.get("format") != FORMAT:
+        raise IndexFormatError(f"{path}: not a {FORMAT} manifest")
+    found = doc.get("version")
+    if found != VERSION:
+        ahead = isinstance(found, int) and found > VERSION
+        hint = (
+            "; artifact was written by a newer library — upgrade to read it"
+            if ahead else ""
+        )
+        raise IndexFormatError(
+            f"{path}: found format version {found}, this build supports "
+            f"version {VERSION}{hint}"
+        )
+    return doc
+
+
+def _check_pages_bin(directory: str, doc: dict) -> str:
+    """The page file must exist and hold exactly the manifest's geometry."""
+    path = os.path.join(directory, PAGES_BIN)
+    if not os.path.isfile(path):
+        raise IndexFormatError(f"{path}: missing page file")
+    want = doc["pages"] * doc["record_rows"] * doc["record_lanes"] * 4
+    got = os.path.getsize(path)
+    if got != want:
+        raise IndexFormatError(
+            f"{path}: corrupted or truncated page file — {got} bytes on "
+            f"disk, manifest geometry needs {want} "
+            f"({doc['pages']} pages x {doc['page_record_bytes']} B)"
+        )
+    return path
+
+
+def config_to_json(cfg: PageANNConfig) -> dict:
+    doc = dataclasses.asdict(cfg)
+    doc["memory_mode"] = cfg.memory_mode.value
+    return doc
+
+
+def config_from_json(doc: dict) -> PageANNConfig:
+    doc = dict(doc)
+    doc["memory_mode"] = MemoryMode(doc["memory_mode"])
+    return PageANNConfig(**doc)
+
+
+# ------------------------------------------------------------------ PageANN
+def save_pageann(index, directory: str) -> None:
+    """Write a built :class:`PageANNIndex` under ``directory``."""
+    os.makedirs(directory, exist_ok=True)
+    store, tier, lsh = index.store, index.tier, index.lsh
+
+    recs = np.ascontiguousarray(store.recs.cpu().numpy(), np.float32)
+    recs.tofile(os.path.join(directory, PAGES_BIN))
+
+    def host(t):
+        return t.cpu().numpy()
+
+    sidecars = {}
+    if index.cfg.memory_mode == MemoryMode.MEM_ALL:
+        # MEM_ALL records carry no code rows, so the host-side codes view
+        # is not recoverable from pages.bin — persist it explicitly
+        sidecars["nbr_codes"] = np.asarray(store.nbr_codes)
+    if index.page_order is not None:
+        sidecars["page_order"] = np.asarray(index.page_order, np.int32)
+    np.savez(
+        os.path.join(directory, ARRAYS_NPZ),
+        **sidecars,
+        member_count=host(store.member_count),
+        nbr_ids=host(store.nbr_ids),
+        nbr_count=host(store.nbr_count),
+        new_to_old=np.asarray(store.new_to_old),
+        old_to_new=np.asarray(store.old_to_new),
+        mem_codes=host(tier.mem_codes),
+        mem_mask=host(tier.mem_mask),
+        mem_codebooks=host(tier.mem_codebooks),
+        disk_codebooks=host(tier.disk_codebooks),
+        cached_pages=host(tier.cached_pages),
+        lsh_planes=host(lsh.planes),
+        lsh_sample_ids=host(lsh.sample_ids),
+        lsh_sample_codes=host(lsh.sample_codes).view(np.uint32),
+        lsh_sample_pq=host(lsh.sample_pq),
+    )
+
+    pages, rows, lanes = recs.shape
+    write_manifest(
+        directory,
+        dict(
+            kind="pageann",
+            config=config_to_json(index.cfg),
+            pages=pages,
+            record_rows=rows,
+            record_lanes=lanes,
+            page_record_bytes=rows * lanes * 4,
+            capacity=store.capacity,
+            dim=store.dim,
+            stats=dataclasses.asdict(index.stats),
+            hot_pages=host(tier.cached_pages).tolist(),
+            residency=dict(
+                memory_budget=None, resident_pages=pages, total_pages=pages,
+            ),
+            tuned=dict(default=None, points=[]),
+            schema=None,
+        ),
+    )
+
+
+def index_from_arrays(
+    cfg: PageANNConfig,
+    arrays: dict,
+    device: str | torch.device = "cuda",
+    *,
+    stats=None,
+):
+    """Assemble a :class:`PageANNIndex` on ``device`` from host arrays.
+
+    ``arrays`` holds the ``arrays.npz`` sidecars under their file names
+    plus ``recs``, the (P, rows, 128) f32 page records. LSH codes may come
+    as uint32 (as saved) or int32; either way the device holds the same
+    bits as int32. ``stats`` defaults to one derived from the arrays.
+    """
+    from repro_torch.core.index import BuildStats, PageANNIndex
+
+    dev = resolve_device(device)
+    recs = np.asarray(arrays["recs"], np.float32)
+    num_pages = recs.shape[0]
+    new_to_old = np.asarray(arrays["new_to_old"])
+    capacity = new_to_old.shape[0] // num_pages
+    dim = cfg.dim
+    nbr_ids = np.asarray(arrays["nbr_ids"])
+    if "nbr_codes" in arrays:                     # MEM_ALL sidecar
+        nbr_codes = np.asarray(arrays["nbr_codes"])
+    else:                                         # recover from the records
+        nbr_codes = layout_mod.unpack_neighbor_codes(
+            recs, capacity, dim, rp=nbr_ids.shape[1], m=cfg.pq_subspaces,
+        )
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+
+    store = layout_mod.PageStore(
+        vecs=layout_mod.unpack_member_vectors(recs, capacity, dim),
+        member_count=put(arrays["member_count"]),
+        nbr_ids=put(nbr_ids),
+        nbr_codes=nbr_codes,
+        nbr_count=put(arrays["nbr_count"]),
+        recs=put(recs),
+        capacity=capacity,
+        dim=dim,
+        new_to_old=new_to_old,
+        old_to_new=np.asarray(arrays["old_to_new"]),
+    )
+    tier = layout_mod.MemoryTier(
+        mem_codes=put(arrays["mem_codes"]),
+        mem_mask=put(arrays["mem_mask"]),
+        mem_codebooks=put(arrays["mem_codebooks"]),
+        disk_codebooks=put(arrays["disk_codebooks"]),
+        cached_pages=put(np.sort(np.asarray(arrays["cached_pages"], np.int32))),
+    )
+    codes = np.ascontiguousarray(arrays["lsh_sample_codes"])
+    lsh = LSHIndex(
+        planes=put(arrays["lsh_planes"]),
+        sample_ids=put(arrays["lsh_sample_ids"]),
+        sample_codes=put(codes.view(np.int32)),
+        sample_pq=put(arrays["lsh_sample_pq"]),
+    )
+    if stats is None:
+        tile = store.padded_tile_bytes()
+        stats = BuildStats(
+            vamana_s=0.0, grouping_s=0.0, pq_s=0.0, pack_s=0.0, lsh_s=0.0,
+            pages=num_pages,
+            capacity=capacity,
+            mean_page_degree=pg_mod.page_graph_stats(nbr_ids)["mean_degree"],
+            logical_page_bytes=store.logical_page_bytes(cfg),
+            padded_tile_bytes=tile,
+            memory_bytes=tier.memory_bytes + lsh.memory_bytes,
+            disk_bytes=num_pages * tile,
+        )
+    stats.resident_pages = num_pages
+    stats.resident_bytes = num_pages * store.padded_tile_bytes()
+    page_order = arrays.get("page_order")
+    return PageANNIndex(
+        cfg=cfg,
+        store=store,
+        tier=tier,
+        lsh=lsh,
+        data=search_mod.make_search_data(store, tier, lsh),
+        stats=stats,
+        device=dev,
+        page_order=None if page_order is None else np.asarray(page_order, np.int32),
+    )
+
+
+def load_pageann(directory: str, *, device: str | torch.device = "cuda",
+                 memory_budget=None):
+    """Reload a saved PageANN index onto ``device``, fully resident.
+
+    Reads artifacts written by this package or by ``repro`` (the JAX
+    reference): the port searches a loaded JAX-built index exactly as the
+    reference does. The parts of the format this slice has not ported yet
+    raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+    """
+    from repro_torch.core.index import BuildStats
+
+    if memory_budget is not None:
+        raise NotImplementedError(
+            "memory-budgeted (streamed) loads are not ported yet: ROADMAP "
+            "queue A, item 7"
+        )
+    doc = read_manifest(directory)
+    if doc["kind"] != "pageann":
+        raise ValueError(f"{directory}: kind={doc['kind']!r}, not a PageANN index")
+    if doc.get("schema") is not None or os.path.isfile(
+        os.path.join(directory, META_NPZ)
+    ):
+        raise NotImplementedError(
+            f"{directory}: the index carries metadata for filtered search, "
+            "which is not ported yet: ROADMAP queue A, item 6"
+        )
+    if (doc.get("tuned") or {}).get("default") is not None:
+        raise NotImplementedError(
+            f"{directory}: the index carries an autotuned default, which is "
+            "not ported yet: ROADMAP queue A, item 5"
+        )
+    cfg = config_from_json(doc["config"])
+
+    pages_path = _check_pages_bin(directory, doc)
+    recs = np.fromfile(pages_path, dtype=np.float32).reshape(
+        doc["pages"], doc["record_rows"], doc["record_lanes"]
+    )
+    with np.load(os.path.join(directory, ARRAYS_NPZ)) as z:
+        arrays = {name: z[name] for name in z.files}
+    arrays["recs"] = recs
+    # warm-cache persistence: the manifest's hot page ids pre-populate the
+    # cache (the npz copy is the fallback for artifacts without hot_pages)
+    arrays["cached_pages"] = np.asarray(
+        doc.get("hot_pages", arrays["cached_pages"]), np.int32
+    )
+    stats = BuildStats(**doc["stats"])
+    stats.disk_bytes = os.path.getsize(pages_path)
+    return index_from_arrays(cfg, arrays, device, stats=stats)

@@ -1,0 +1,88 @@
+"""Product quantization: the compressed vector representation of the paper.
+
+Port of ``repro.core.pq``. Codebooks are trained with Lloyd k-means per
+subspace, vectors are encoded by an argmin over expanded-norm squared
+distances (the reference's exact formula, so codes differ only on
+near-ties), and a query's ADC table holds its squared distance to every
+centroid of every subspace. The ADC sum itself is the ``pq_adc`` kernel
+(``repro_torch.kernels.ops``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _sq_dists(sub: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
+    """(N, dsub) x (K, dsub) -> (N, K) expanded-norm squared L2, in the
+    reference's order of operations."""
+    return (
+        (sub * sub).sum(-1)[:, None]
+        - 2.0 * sub @ cents.T
+        + (cents * cents).sum(-1)[None, :]
+    )
+
+
+def _kmeans_1sub(xsub: torch.Tensor, init: torch.Tensor, *, ksub: int,
+                 iters: int) -> torch.Tensor:
+    """Lloyd k-means for one PQ subspace. xsub: (N, dsub), init: (ksub,)
+    row ids of the starting centroids."""
+    cents = xsub[init]
+    for _ in range(iters):
+        assign = _sq_dists(xsub, cents).argmin(1)
+        counts = torch.bincount(assign, minlength=ksub).to(xsub.dtype)
+        sums = torch.zeros_like(cents).index_add_(0, assign, xsub)
+        cents = torch.where(
+            counts[:, None] > 0, sums / counts.clamp(min=1)[:, None], cents
+        )
+    return cents
+
+
+def train_pq(
+    x: np.ndarray, m: int, ksub: int = 256, iters: int = 12, seed: int = 0,
+    *, device: str | torch.device = "cuda",
+) -> np.ndarray:
+    """Train PQ codebooks on ``device``. Returns (M, ksub, dsub) float32.
+
+    Each subspace starts from ``ksub`` distinct rows (with replacement only
+    when there are fewer rows than centroids), drawn from one
+    ``torch.Generator`` seeded with ``seed`` in place of the reference's
+    ``jax.random.choice``, so codebooks match the reference statistically,
+    not bit for bit.
+    """
+    device = resolve_device(device)
+    xt = torch.as_tensor(np.asarray(x, np.float32)).to(device)
+    n, d = xt.shape
+    dsub = d // m
+    gen = torch.Generator().manual_seed(seed)
+    books = []
+    for j in range(m):
+        if n >= ksub:
+            init = torch.randperm(n, generator=gen)[:ksub]
+        else:
+            init = torch.randint(0, n, (ksub,), generator=gen)
+        xsub = xt[:, j * dsub:(j + 1) * dsub].contiguous()
+        books.append(_kmeans_1sub(xsub, init.to(device), ksub=ksub, iters=iters))
+    return torch.stack(books).cpu().numpy()
+
+
+def pq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Encode vectors to PQ codes. x: (N, d), codebooks (M, ksub, dsub)
+    -> (N, M) uint8 on x's device."""
+    n = x.shape[0]
+    m, _, dsub = codebooks.shape
+    codes = torch.empty((n, m), dtype=torch.uint8, device=x.device)
+    for j in range(m):
+        sub = x[:, j * dsub:(j + 1) * dsub]
+        codes[:, j] = _sq_dists(sub, codebooks[j]).argmin(1).to(torch.uint8)
+    return codes
+
+
+def pq_lut(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Per-query ADC lookup tables. q: (Q, d), codebooks (M, ksub, dsub)
+    -> (Q, M, ksub) squared sub-distances."""
+    m, _, dsub = codebooks.shape
+    qs = q.reshape(q.shape[0], m, 1, dsub)
+    return ((qs - codebooks[None]) ** 2).sum(-1)

@@ -1,0 +1,446 @@
+"""PageANN graph search — Algorithm 2, as a batched PyTorch loop.
+
+Port of ``repro.core.search`` (fully resident, no filter, no adaptive
+search). The reference ``vmap``s a ``lax.while_loop`` over queries; here
+every tensor of the per-query :class:`BeamState` carries a leading query
+axis and one Python loop runs the hops for the whole batch. Each hop
+applies the same three transitions:
+
+  ``select_batch``      pick up to b closest unvisited candidates on fresh
+                        pages (one stable sort of the beam plus a
+                        first-occurrence-per-page mask),
+  ``score_page_batch``  read those page records once through the
+                        ``page_scan`` kernel (exact member L2 + on-page
+                        neighbour ADC) and re-score neighbours with the
+                        in-memory codes through ``pq_adc`` per mode,
+  ``merge``             fold both score sets into the result top-k and the
+                        beam.
+
+A lane whose loop condition is false is frozen, as under ``vmap``: the hop
+runs only on the active lanes and their new state is written back, so a
+finished query's state never changes. The loop ends when no lane is active,
+which costs one host sync per hop.
+
+Ties break as in the reference: ``lax.top_k`` and ``lax.sort(is_stable=
+True)`` both favour the lower index, so every selection here is a stable
+ascending ``torch.sort`` and a prefix — never ``torch.topk``, whose order
+among equal values is unspecified.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import pq as pq_mod
+from repro_torch.core.config import MemoryMode, SearchParams
+from repro_torch.core.layout import MemoryTier, PageStore
+from repro_torch.core.lsh import LSHIndex, hash_codes
+from repro_torch.kernels import ops
+
+PAD = -1
+INF = float("inf")
+
+
+class SearchData(NamedTuple):
+    """All device tensors the search reads."""
+
+    page_recs: torch.Tensor     # (P, rows, 128) f32 packed page records
+    member_count: torch.Tensor  # (P,)
+    nbr_ids: torch.Tensor       # (P, Rp)
+    nbr_count: torch.Tensor     # (P,)
+    mem_codes: torch.Tensor     # (N_pad, M_mem) uint8
+    mem_mask: torch.Tensor      # (N_pad,) bool
+    mem_codebooks: torch.Tensor
+    disk_codebooks: torch.Tensor
+    cached_pages: torch.Tensor  # (C,) sorted
+    lsh_planes: torch.Tensor
+    lsh_ids: torch.Tensor
+    lsh_codes: torch.Tensor     # (S, W) int32 (uint32 bit patterns)
+    lsh_pq: torch.Tensor        # (S, M_disk) uint8
+
+
+def make_search_data(store: PageStore, tier: MemoryTier, lsh: LSHIndex) -> SearchData:
+    return SearchData(
+        page_recs=store.recs,
+        member_count=store.member_count,
+        nbr_ids=store.nbr_ids,
+        nbr_count=store.nbr_count,
+        mem_codes=tier.mem_codes,
+        mem_mask=tier.mem_mask,
+        mem_codebooks=tier.mem_codebooks,
+        disk_codebooks=tier.disk_codebooks,
+        cached_pages=tier.cached_pages,
+        lsh_planes=lsh.planes,
+        lsh_ids=lsh.sample_ids,
+        lsh_codes=lsh.sample_codes,
+        lsh_pq=lsh.sample_pq,
+    )
+
+
+class SearchResult(NamedTuple):
+    ids: torch.Tensor       # (Q, k) reassigned vector ids
+    dists: torch.Tensor     # (Q, k) exact squared distances
+    ios: torch.Tensor       # (Q,) page reads that went to 'disk'
+    hops: torch.Tensor      # (Q,) loop iterations
+    cache_hits: torch.Tensor  # (Q,) page reads served by the warmed cache
+
+
+class BeamState(NamedTuple):
+    """Loop state of Algorithm 2 for a batch of queries (leading axis Q)."""
+
+    cand_ids: torch.Tensor   # (Q, L) candidate vector ids, PAD padded
+    cand_d: torch.Tensor     # (Q, L) estimated distances, INF padded
+    cand_vis: torch.Tensor   # (Q, L) expanded/scheduled flags
+    page_vis: torch.Tensor   # (Q, P) visited-page bitmap (the paper's V)
+    res_ids: torch.Tensor    # (Q, k) running exact top-k ids
+    res_d: torch.Tensor      # (Q, k) running exact top-k distances
+    io: torch.Tensor         # (Q,) page reads served from 'disk'
+    cache_hits: torch.Tensor  # (Q,) page reads served by the warmed cache
+    hops: torch.Tensor       # (Q,) loop iterations
+
+
+def _top_k_merge(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ascending top-k along the last axis, lower index first on ties
+    (``lax.top_k``'s order): (dists, indices)."""
+    vals, idx = torch.sort(d, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _mask_dups_keep_first(ids: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Set distance to INF for duplicate ids in each row, keeping the first
+    occurrence: one stable sort, a segment-boundary compare, and the flags
+    scattered back to their positions."""
+    s, spos = torch.sort(ids, dim=-1, stable=True)
+    dup_sorted = torch.zeros_like(s, dtype=torch.bool)
+    dup_sorted[..., 1:] = s[..., 1:] == s[..., :-1]
+    dup = torch.zeros_like(dup_sorted).scatter_(-1, spos, dup_sorted)
+    return torch.where(dup & (ids != PAD), INF, d)
+
+
+# --------------------------------------------------------------------------
+# per-hop transition functions (batched over queries)
+# --------------------------------------------------------------------------
+
+def init_state(
+    q: torch.Tensor,
+    data: SearchData,
+    disk_lut: torch.Tensor,
+    *,
+    beam: int,
+    k: int,
+    entries: int,
+    impl: str | None = None,
+) -> BeamState:
+    """In-memory routing (Alg. 2 line 4, Fig. 6 step 1): LSH entry points.
+
+    q: (Q, d), disk_lut: (Q, M_disk, K). The Hamming sweep and the entry
+    estimates run through the ``hamming`` and ``pq_adc`` kernels; the top-T
+    is a stable sort, because small-integer Hamming scores tie often.
+    """
+    nq = q.shape[0]
+    dev = q.device
+    num_pages = data.member_count.shape[0]
+    qcode = hash_codes(q, data.lsh_planes)
+    ham = ops.hamming(data.lsh_codes, qcode, impl=impl)          # (Q, S)
+    _, top = _top_k_merge(ham.to(torch.float32), entries)
+    entry_ids = data.lsh_ids[top].to(torch.int32)               # (Q, T)
+    entry_d = ops.pq_adc(data.lsh_pq[top], disk_lut, impl=impl)  # (Q, T)
+    entry_d = _mask_dups_keep_first(entry_ids, entry_d)
+
+    cand_ids = torch.full((nq, beam), PAD, dtype=torch.int32, device=dev)
+    cand_ids[:, :entries] = entry_ids
+    cand_d = torch.full((nq, beam), INF, dtype=torch.float32, device=dev)
+    cand_d[:, :entries] = entry_d
+    zeros = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    return BeamState(
+        cand_ids=cand_ids,
+        cand_d=cand_d,
+        cand_vis=torch.zeros((nq, beam), dtype=torch.bool, device=dev),
+        page_vis=torch.zeros((nq, num_pages), dtype=torch.bool, device=dev),
+        res_ids=torch.full((nq, k), PAD, dtype=torch.int32, device=dev),
+        res_d=torch.full((nq, k), INF, dtype=torch.float32, device=dev),
+        io=zeros,
+        cache_hits=zeros.clone(),
+        hops=zeros.clone(),
+    )
+
+
+def select_batch(
+    state: BeamState, *, capacity: int, io_batch: int
+) -> tuple[BeamState, torch.Tensor]:
+    """Pick up to b closest unvisited candidates whose pages are fresh.
+
+    Stable-sort each beam by (masked distance, slot), keep the first
+    occurrence of each page among finite entries, and take the first b —
+    the pages the reference's serial argmin would have scheduled, in the
+    same order. Returns the updated state (selected candidates expanded,
+    their pages visited, candidates on stale pages retired) and the (Q, b)
+    page ids to read, PAD padded. The reference's scatters with
+    ``mode="drop"`` write to a sentinel column that is cut off afterwards.
+    """
+    cand_ids = state.cand_ids
+    nq, beam = cand_ids.shape
+    num_pages = state.page_vis.shape[1]
+    b = io_batch
+    dev = cand_ids.device
+
+    cpages = torch.where(cand_ids >= 0, cand_ids // capacity, 0).long()
+    # retire candidates whose page was visited before this hop
+    stale = (cand_ids != PAD) & state.page_vis.gather(1, cpages)
+    masked = torch.where(
+        state.cand_vis | stale | (cand_ids == PAD), INF, state.cand_d
+    )
+
+    sd, sslot = torch.sort(masked, dim=1, stable=True)
+    spages = cpages.gather(1, sslot)
+    finite = torch.isfinite(sd)
+    pos = torch.arange(beam, device=dev)
+    # first finite occurrence of each page in (distance, slot) order
+    earlier_same = (
+        (spages[:, :, None] == spages[:, None, :])
+        & (pos[None, :] < pos[:, None])[None]   # strictly earlier sorted pos
+        & finite[:, None, :]
+    ).any(2)
+    first = finite & ~earlier_same
+    rank = torch.cumsum(first, 1) - first.long()   # fresh pages before
+    scheduled = first & (rank < b)
+    n_sched = scheduled.sum(1)
+
+    batch = torch.full((nq, b + 1), PAD, dtype=torch.int32, device=dev)
+    batch.scatter_(1, torch.where(scheduled, rank, b), spages.to(torch.int32))
+    batch = batch[:, :b]
+    page_vis = torch.cat(
+        [state.page_vis, torch.zeros((nq, 1), dtype=torch.bool, device=dev)], 1
+    )
+    page_vis.scatter_(1, torch.where(scheduled, spages, num_pages),
+                      torch.ones_like(scheduled))
+    page_vis = page_vis[:, :num_pages]
+
+    # expanded flags: the b scheduled picks, plus co-page candidates of any
+    # page scheduled before the final pick (the serial loop's stale marking
+    # ran once more after each pick except the last)
+    early_pages = torch.where(scheduled & (rank < b - 1), spages, -1)   # (Q, L)
+    early = (cpages[:, :, None] == early_pages[:, None, :]).any(2)
+    picked = torch.zeros_like(scheduled).scatter_(1, sslot, scheduled)
+    cand_vis = state.cand_vis | stale | picked
+    cand_vis = cand_vis | ((cand_ids != PAD) & early)
+    # the serial argmin marked slot 0 on every exhausted pick (all-INF mask)
+    cand_vis[:, 0] |= n_sched < b
+    return state._replace(cand_vis=cand_vis, page_vis=page_vis), batch
+
+
+def score_page_batch(
+    q: torch.Tensor,
+    data: SearchData,
+    batch: torch.Tensor,
+    state: BeamState,
+    disk_lut: torch.Tensor,
+    mem_lut: torch.Tensor | None,
+    *,
+    capacity: int,
+    mode: str,
+    impl: str | None = None,
+):
+    """Batched page-record read (Fig. 6 steps 2-4, THE I/O) -> both score
+    sets from one read of each page.
+
+    ``page_scan`` reads each scheduled record once and emits exact member
+    L2 distances and on-page neighbour ADC estimates. MEM_ALL skips the
+    on-page ADC; HYBRID/MEM_ALL re-score neighbours with the finer
+    in-memory codes through ``pq_adc``.
+
+    Returns (member_ids, member_dists) as (Q, b*cap), (neighbor_ids,
+    estimated_dists) as (Q, b*Rp) INF-masked, plus this hop's disk-I/O and
+    cache-hit deltas (Q,).
+    """
+    cap = capacity
+    nq, b = batch.shape
+    rp = data.nbr_ids.shape[1]
+    dev = q.device
+    safe = batch.clamp(min=0).long()
+    fetched = batch >= 0
+
+    compute_adc = mode != MemoryMode.MEM_ALL.value
+    ex, est_disk = ops.page_scan(
+        data.page_recs, safe, q, disk_lut,
+        capacity=cap, dim=q.shape[1], rp=rp, compute_adc=compute_adc,
+        impl=impl,
+    )
+    slots = torch.arange(cap, device=dev)
+    ex = torch.where(slots < data.member_count[safe][:, :, None], ex, INF)
+    ex = torch.where(fetched[:, :, None], ex, INF)
+    member_ids = (batch[:, :, None] * capacity + slots).to(torch.int32)
+
+    # warmed page cache (Sec 4.3): sorted-membership test
+    ncached = data.cached_pages.shape[0]
+    if ncached > 0:
+        pos = torch.searchsorted(data.cached_pages, safe.to(data.cached_pages.dtype))
+        pos = pos.clamp(max=ncached - 1)
+        in_cache = data.cached_pages[pos] == safe
+    else:
+        in_cache = torch.zeros_like(fetched)
+    io_delta = (fetched & ~in_cache).sum(1).to(torch.int32)
+    hit_delta = (fetched & in_cache).sum(1).to(torch.int32)
+
+    # neighbor estimates (Fig. 6 steps 3-4) per the coordination mode
+    flat_nids = data.nbr_ids[safe].reshape(nq, b * rp)               # (Q, b*Rp)
+    valid_n = (
+        (torch.arange(rp, device=dev) < data.nbr_count[safe][:, :, None])
+        .reshape(nq, b * rp)
+        & (flat_nids != PAD)
+        & fetched.repeat_interleave(rp, dim=1)
+    )
+    safe_nids = flat_nids.clamp(min=0).long()
+    if mode == MemoryMode.DISK_ONLY.value:
+        est = est_disk.reshape(nq, b * rp)
+    elif mode == MemoryMode.MEM_ALL.value:
+        est = ops.pq_adc(data.mem_codes[safe_nids], mem_lut, impl=impl)
+    else:  # HYBRID: prefer the higher-accuracy in-memory codes
+        est_mem = ops.pq_adc(data.mem_codes[safe_nids], mem_lut, impl=impl)
+        est = torch.where(data.mem_mask[safe_nids], est_mem,
+                          est_disk.reshape(nq, b * rp))
+    est = torch.where(valid_n, est, INF)
+    # skip neighbors on already-visited pages
+    est = torch.where(state.page_vis.gather(1, safe_nids // capacity), INF, est)
+    # skip neighbors already in the candidate set: sorted membership probe
+    sorted_cand = torch.sort(state.cand_ids, dim=1).values
+    pos = torch.searchsorted(sorted_cand, flat_nids)
+    pos = pos.clamp(max=sorted_cand.shape[1] - 1)
+    est = torch.where(sorted_cand.gather(1, pos) == flat_nids, INF, est)
+    # dedupe within this batch
+    est = _mask_dups_keep_first(flat_nids, est)
+    return (member_ids.reshape(nq, b * cap), ex.reshape(nq, b * cap),
+            flat_nids, est, io_delta, hit_delta)
+
+
+def merge(
+    state: BeamState,
+    member_ids: torch.Tensor,
+    member_d: torch.Tensor,
+    nbr_ids: torch.Tensor,
+    nbr_d: torch.Tensor,
+    io_delta: torch.Tensor,
+    hit_delta: torch.Tensor,
+) -> BeamState:
+    """Fold exact member scores into the result top-k and estimated
+    neighbour scores into the beam (Alg. 2 line 12, Fig. 6 step 5)."""
+    k = state.res_ids.shape[1]
+    beam = state.cand_ids.shape[1]
+
+    res_d, order = _top_k_merge(torch.cat([state.res_d, member_d], 1), k)
+    res_ids = torch.cat([state.res_ids, member_ids], 1).gather(1, order)
+
+    cand_d, order = _top_k_merge(torch.cat([state.cand_d, nbr_d], 1), beam)
+    cand_ids = torch.cat([state.cand_ids, nbr_ids], 1).gather(1, order)
+    cand_vis = torch.cat(
+        [state.cand_vis, torch.zeros_like(nbr_ids, dtype=torch.bool)], 1
+    ).gather(1, order)
+    return state._replace(
+        cand_ids=cand_ids,
+        cand_d=cand_d,
+        cand_vis=cand_vis,
+        res_ids=res_ids,
+        res_d=res_d,
+        io=state.io + io_delta,
+        cache_hits=state.cache_hits + hit_delta,
+        hops=state.hops + 1,
+    )
+
+
+def _active(state: BeamState, max_hops: int) -> torch.Tensor:
+    """The reference's while-loop ``cond``, per lane: a live (unexpanded,
+    finite) candidate remains and the hop budget is not spent."""
+    live = (~state.cand_vis) & (state.cand_ids != PAD) & torch.isfinite(state.cand_d)
+    return live.any(1) & (state.hops < max_hops)
+
+
+def _search_batch(
+    queries: torch.Tensor,
+    data: SearchData,
+    *,
+    capacity: int,
+    beam: int,
+    io_batch: int,
+    k: int,
+    max_hops: int,
+    entries: int,
+    mode: str,
+    impl: str | None = None,
+) -> SearchResult:
+    disk_lut = pq_mod.pq_lut(queries, data.disk_codebooks)   # (Q, M_disk, K)
+    # the finer in-memory tables are dead weight in DISK_ONLY mode
+    mem_lut = (
+        pq_mod.pq_lut(queries, data.mem_codebooks)            # (Q, M_mem, K)
+        if mode != MemoryMode.DISK_ONLY.value
+        else None
+    )
+    state = init_state(
+        queries, data, disk_lut, beam=beam, k=k, entries=entries, impl=impl
+    )
+    nq = queries.shape[0]
+    while True:
+        lanes = _active(state, max_hops).nonzero().squeeze(1)
+        n = lanes.numel()                      # the hop's one host sync
+        if n == 0:
+            break
+        if n == nq:
+            sub, q, dl, ml = state, queries, disk_lut, mem_lut
+        else:
+            sub = BeamState(*(t[lanes] for t in state))
+            q, dl = queries[lanes], disk_lut[lanes]
+            ml = None if mem_lut is None else mem_lut[lanes]
+        sub, batch = select_batch(sub, capacity=capacity, io_batch=io_batch)
+        sub = merge(sub, *score_page_batch(
+            q, data, batch, sub, dl, ml, capacity=capacity, mode=mode,
+            impl=impl,
+        ))
+        if n == nq:
+            state = sub
+        else:
+            # frozen lanes keep their state; the loop owns these tensors
+            for full, part in zip(state, sub):
+                full[lanes] = part
+    return SearchResult(
+        ids=state.res_ids, dists=state.res_d, ios=state.io,
+        hops=state.hops, cache_hits=state.cache_hits,
+    )
+
+
+def batch_search(
+    queries: torch.Tensor,
+    data: SearchData,
+    params: SearchParams,
+    *,
+    capacity: int,
+    mode: str,
+    impl: str | None = None,
+) -> SearchResult:
+    """Search a batch of queries. queries: (Q, d) on the data's device.
+
+    ``params`` carries the per-call runtime knobs (beam L, io batch b, max
+    hops, LSH top-T, k); ``capacity`` and ``mode`` are build-time
+    properties of the index. ``impl="plain"`` runs every kernel's plain
+    version (tests and the chip smoke compare the two).
+    """
+    problems = params.pageann_violations()
+    if problems:
+        raise ValueError(
+            "invalid SearchParams for PageANN search: " + "; ".join(problems)
+        )
+    if params.adaptive is not None:
+        raise NotImplementedError(
+            "adaptive search (SearchParams.adaptive) is not ported yet: "
+            "ROADMAP queue A, item 5"
+        )
+    return _search_batch(
+        queries, data,
+        capacity=capacity,
+        beam=params.beam_width,
+        io_batch=params.io_batch,
+        k=params.k,
+        max_hops=params.max_hops,
+        entries=params.lsh_entries,
+        mode=mode,
+        impl=impl,
+    )

@@ -1,0 +1,105 @@
+"""Plain PyTorch versions of the hot-path kernels, batched over queries.
+
+Each function is the port's semantic ground truth for one CUDA kernel in
+``repro_torch.kernels.csrc``: ``ops`` dispatches CPU tensors here, the tests
+hold these against ``repro.kernels.ref`` (the JAX oracles), and
+``chip_smoke.py`` holds the kernels against these on the card. Where the
+JAX oracle takes one query (the search ``vmap``s over queries), the version
+here takes the whole batch: a leading ``Q`` axis on the query-side inputs
+and outputs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import record_layout
+
+_U32 = 0xFFFFFFFF
+
+
+def hamming_ref(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between packed 32-bit codes.
+
+    codes: (S, W) int32 holding the uint32 bit patterns, qcodes: (Q, W)
+    int32 -> (Q, S) int32. The popcount is the same SWAR bit-twiddle as
+    ``repro.kernels.ref.hamming_ref``, carried out in int64 so no step
+    depends on unsigned 32-bit arithmetic.
+    """
+    v = torch.bitwise_xor(codes[None, :, :], qcodes[:, None, :]).to(torch.int64)
+    v = v & _U32
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    pc = ((v * 0x01010101) & _U32) >> 24
+    return pc.sum(-1).to(torch.int32)
+
+
+def pq_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """ADC distance. codes: (Q, N, M) uint8, lut: (Q, M, K) f32 -> (Q, N)
+    f32, the sum over subspaces j of ``lut[q, j, codes[q, n, j]]``."""
+    idx = codes.to(torch.int64).transpose(1, 2)        # (Q, M, N)
+    return lut.gather(2, idx).sum(1)                   # (Q, N)
+
+
+def page_scan_recs_ref(
+    recs_b: torch.Tensor,
+    q: torch.Tensor,
+    lut: torch.Tensor | None,
+    *,
+    capacity: int,
+    dim: int,
+    rp: int,
+    compute_adc: bool = True,
+):
+    """Both score sets of already-gathered page records.
+
+    recs_b: (Q, b, rows, 128) f32 packed records (``core.layout.
+    pack_page_records``), q: (Q, d) f32, lut: (Q, M, K) f32.
+    -> (member_d (Q, b, capacity) f32, nbr_d (Q, b, rp) f32 or None).
+    Member vectors are read back out of the dense packing (``128 // d`` per
+    row for d <= 128, ``ceil(d / 128)`` rows each above), neighbour codes
+    from the M subspace-major code rows after the member block.
+    """
+    nq, b = recs_b.shape[:2]
+    rv = record_layout.member_rows(capacity, dim)
+    if dim <= record_layout.PAGE_LANES:
+        vpr = record_layout.vectors_per_row(dim)
+        block = recs_b[:, :, :rv, : vpr * dim]
+        vecs = block.reshape(nq, b, rv * vpr, dim)[:, :, :capacity]
+    else:
+        rpv = record_layout.rows_per_vector(dim)
+        block = recs_b[:, :, :rv, :]
+        vecs = block.reshape(
+            nq, b, capacity, rpv * record_layout.PAGE_LANES
+        )[:, :, :, :dim]
+    diff = vecs - q[:, None, None, :]
+    member_d = (diff * diff).sum(-1)
+    if not compute_adc:
+        return member_d, None
+    m, k = lut.shape[1:]
+    codes = recs_b[:, :, rv:rv + m, :rp].to(torch.int64)        # (Q, b, M, rp)
+    table = lut[:, None, :, :].expand(nq, b, m, k)
+    nbr_d = table.gather(3, codes).sum(2)                      # (Q, b, rp)
+    return member_d, nbr_d
+
+
+def page_scan_ref(
+    recs: torch.Tensor,
+    page_ids: torch.Tensor,
+    q: torch.Tensor,
+    lut: torch.Tensor | None,
+    *,
+    capacity: int,
+    dim: int,
+    rp: int,
+    compute_adc: bool = True,
+):
+    """Fused page scan: gather each query's pages, score both sets.
+
+    recs: (P, rows, 128) f32, page_ids: (Q, b) int (>= 0), q: (Q, d),
+    lut: (Q, M, K) f32 -> (member_d (Q, b, cap), nbr_d (Q, b, rp) or None).
+    """
+    return page_scan_recs_ref(
+        recs[page_ids.to(torch.int64)], q, lut,
+        capacity=capacity, dim=dim, rp=rp, compute_adc=compute_adc,
+    )

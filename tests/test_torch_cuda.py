@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA device and skips without one. The module
+imports no JAX, so it runs on a GPU host that has only PyTorch (the seeded
+page-scan inputs below are shared with ``test_torch_kernels.py``):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance for the float kernels: rtol 1e-5, atol 1e-4, because the kernel
+sums in another order than the plain version; ``hamming`` is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.layout import pack_page_records
+from repro_torch.kernels import ops
+
+# (pages, capacity, dim, neighbours per page, PQ subspaces, pages per hop)
+PAGE_CASES = [
+    (7, 4, 16, 12, 4, 3),
+    (23, 28, 32, 48, 8, 5),     # the test-suite geometry, d = 32
+    (11, 5, 128, 48, 16, 8),    # d == full lane width
+    (5, 3, 200, 12, 4, 4),      # d > 128: vectors span 2 record rows
+    (4, 6, 384, 16, 8, 2),
+]
+
+
+def page_inputs(p, cap, d, rp, m, b, nq=3):
+    """Packed records (p, rows, 128), page ids (nq, b), queries (nq, d) and
+    ADC tables (nq, m, 256), all from one seed."""
+    rng = np.random.default_rng(p * 100 + cap)
+    vecs = rng.standard_normal((p, cap, d)).astype(np.float32)
+    codes = rng.integers(0, 256, (p, rp, m)).astype(np.uint8)
+    recs = pack_page_records(vecs, codes)
+    ids = rng.integers(0, p, (nq, b)).astype(np.int32)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    lut = rng.standard_normal((nq, m, 256)).astype(np.float32)
+    return recs, ids, q, lut
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
+@pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES)
+def test_page_scan_kernel_matches_plain(cuda, p, cap, d, rp, m, b, adc):
+    recs, ids, q, lut = (torch.as_tensor(a).to(cuda)
+                         for a in page_inputs(p, cap, d, rp, m, b, nq=64))
+    kw = dict(capacity=cap, dim=d, rp=rp, compute_adc=adc)
+    name = "page_scan" if adc else "page_scan_members"
+    before = ops.launch_counts()[name]
+    got = ops.page_scan(recs, ids, q, lut, **kw)
+    assert ops.launch_counts()[name] == before + 1
+    want = ops.page_scan(recs, ids, q, lut, impl="plain", **kw)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    if adc:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pq_adc_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    for shape in ((64, 240, 32), (64, 16, 16), (3, 1000, 8)):
+        nq, n, m = shape
+        codes = torch.as_tensor(rng.integers(0, 256, shape).astype(np.uint8)).to(cuda)
+        lut = torch.as_tensor(rng.random((nq, m, 256)).astype(np.float32)).to(cuda)
+        torch.testing.assert_close(ops.pq_adc(codes, lut),
+                                   ops.pq_adc(codes, lut, impl="plain"),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_matches_plain_exactly(cuda):
+    rng = np.random.default_rng(1)
+    for s, w, nq in ((1024, 2, 64), (300, 5, 7)):
+        c = torch.as_tensor(rng.integers(-2**31, 2**31, (s, w)).astype(np.int32)).to(cuda)
+        qc = torch.as_tensor(rng.integers(-2**31, 2**31, (nq, w)).astype(np.int32)).to(cuda)
+        assert torch.equal(ops.hamming(c, qc), ops.hamming(c, qc, impl="plain"))

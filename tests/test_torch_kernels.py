@@ -1,0 +1,168 @@
+"""The port's kernels (repro_torch.kernels) against the JAX package's.
+
+On the CPU every ``ops`` call dispatches to the plain PyTorch version; those
+are held against ``repro.kernels.ref`` (the jnp oracles) and against the
+Pallas kernels run with ``interpret=True``, on the same seeded inputs. The
+CUDA kernels themselves are held against the plain versions in
+``test_torch_cuda.py`` (marked ``cuda``, skipped without a card; it imports
+no JAX so it runs on a GPU host) and by ``chip_smoke.py`` at the main
+path's shapes.
+"""
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels import record_layout as jlayout
+from repro.kernels.hamming import hamming as pallas_hamming
+from repro.kernels.page_scan import page_scan as pallas_page_scan
+from repro.kernels.pq_adc import pq_adc as pallas_pq_adc
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import hamming as hamming_k
+from repro_torch.kernels import page_scan as page_scan_k
+from repro_torch.kernels import pq_adc as pq_adc_k
+from repro_torch.kernels import record_layout as tlayout
+from repro_torch.kernels import ref as tref
+from test_torch_cuda import PAGE_CASES, page_inputs as _page_inputs
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------- page_scan
+@pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
+@pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES)
+def test_page_scan_plain_matches_jax_ref_and_pallas(p, cap, d, rp, m, b, adc):
+    recs, ids, q, lut = _page_inputs(p, cap, d, rp, m, b)
+    md, nd = ops.page_scan(
+        torch.as_tensor(recs), torch.as_tensor(ids), torch.as_tensor(q),
+        torch.as_tensor(lut), capacity=cap, dim=d, rp=rp, compute_adc=adc,
+    )
+    assert md.shape == (len(q), b, cap)
+    assert (nd is None) == (not adc)
+    kw = dict(capacity=cap, dim=d, rp=rp, compute_adc=adc)
+    for i in range(len(q)):
+        args = (jnp.asarray(recs), jnp.asarray(ids[i]), jnp.asarray(q[i]),
+                jnp.asarray(lut[i]))
+        for md_j, nd_j in (jref.page_scan_ref(*args, **kw),
+                           pallas_page_scan(*args, **kw, interpret=True)):
+            np.testing.assert_allclose(md[i].numpy(), np.asarray(md_j), **TOL)
+            if adc:
+                np.testing.assert_allclose(nd[i].numpy(), np.asarray(nd_j), **TOL)
+            else:
+                assert nd_j is None
+
+
+def test_page_scan_recs_ref_is_page_scan_on_gathered_records():
+    recs, ids, q, lut = _page_inputs(9, 6, 24, 10, 8, 4)
+    recs_t, ids_t = torch.as_tensor(recs), torch.as_tensor(ids)
+    kw = dict(capacity=6, dim=24, rp=10)
+    a = tref.page_scan_ref(recs_t, ids_t, torch.as_tensor(q), torch.as_tensor(lut), **kw)
+    b = tref.page_scan_recs_ref(recs_t[ids_t.long()], torch.as_tensor(q),
+                                torch.as_tensor(lut), **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# ------------------------------------------------------------- pq_adc
+@pytest.mark.parametrize("nq,n,m,k", [(3, 130, 8, 256), (2, 240, 32, 256),
+                                      (4, 16, 16, 256), (1, 7, 4, 64)])
+def test_pq_adc_plain_matches_jax_ref_and_pallas(nq, n, m, k):
+    rng = np.random.default_rng(n + m)
+    codes = rng.integers(0, k, (nq, n, m)).astype(np.uint8)
+    lut = rng.standard_normal((nq, m, k)).astype(np.float32)
+    out = ops.pq_adc(torch.as_tensor(codes), torch.as_tensor(lut)).numpy()
+    assert out.shape == (nq, n) and out.dtype == np.float32
+    for i in range(nq):
+        c, t = jnp.asarray(codes[i]), jnp.asarray(lut[i])
+        np.testing.assert_allclose(out[i], np.asarray(jref.pq_adc_ref(c, t)), **TOL)
+        np.testing.assert_allclose(
+            out[i], np.asarray(pallas_pq_adc(c, t, interpret=True)), **TOL)
+
+
+# ------------------------------------------------------------- hamming
+@pytest.mark.parametrize("s,w,nq", [(512, 2, 3), (1024, 2, 2), (37, 1, 4), (9, 5, 1)])
+def test_hamming_plain_matches_jax_ref_and_pallas_exactly(s, w, nq):
+    rng = np.random.default_rng(s + w)
+    codes = rng.integers(0, 2**32, (s, w), dtype=np.uint64).astype(np.uint32)
+    qcodes = rng.integers(0, 2**32, (nq, w), dtype=np.uint64).astype(np.uint32)
+    codes[0] = qcodes[0]                      # a zero distance
+    codes[1] = ~qcodes[0]                     # the largest distance
+    out = ops.hamming(torch.as_tensor(codes.view(np.int32)),
+                      torch.as_tensor(qcodes.view(np.int32))).numpy()
+    assert out.dtype == np.int32 and out.shape == (nq, s)
+    assert out[0, 0] == 0 and out[0, 1] == 32 * w
+    for i in range(nq):
+        c, qc = jnp.asarray(codes), jnp.asarray(qcodes[i])
+        np.testing.assert_array_equal(out[i], np.asarray(jref.hamming_ref(c, qc)))
+        np.testing.assert_array_equal(
+            out[i], np.asarray(pallas_hamming(c, qc, interpret=True)))
+
+
+# ------------------------------------------------------------- dispatch
+def test_record_layout_is_the_reference_geometry():
+    for dim in (8, 16, 24, 32, 100, 128, 129, 200, 384):
+        assert tlayout.vectors_per_row(dim) == jlayout.vectors_per_row(dim)
+        assert tlayout.rows_per_vector(dim) == jlayout.rows_per_vector(dim)
+        for cap in (1, 4, 6, 7, 27, 30):
+            assert tlayout.member_rows(cap, dim) == jlayout.member_rows(cap, dim)
+            for m in (0, 4, 16):
+                assert tlayout.record_rows(cap, dim, m) == jlayout.record_rows(cap, dim, m)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    recs, ids, q, lut = _page_inputs(7, 4, 16, 12, 4, 3)
+    ops.reset_launch_counts()
+    t = [torch.as_tensor(a) for a in (recs, ids, q, lut)]
+    got = ops.page_scan(*t, capacity=4, dim=16, rp=12)
+    want = tref.page_scan_ref(*t, capacity=4, dim=16, rp=12)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ops.pq_adc(torch.zeros((1, 3, 4), dtype=torch.uint8), t[3][:1])
+    ops.hamming(torch.zeros((5, 2), dtype=torch.int32),
+                torch.zeros((1, 2), dtype=torch.int32))
+    assert ops.launch_counts() == {
+        "page_scan": 0, "page_scan_members": 0, "pq_adc": 0, "hamming": 0}
+
+
+def test_kernel_route_refuses_cpu_tensors():
+    """No fallback: the kernel wrappers reject CPU inputs before touching
+    the library, and ``ops`` takes no route but the device's or "plain"."""
+    recs, ids, q, lut = (torch.as_tensor(a) for a in _page_inputs(7, 4, 16, 12, 4, 3))
+    for impl in ("cuda", "pallas"):
+        with pytest.raises(ValueError, match="impl"):
+            ops.hamming(torch.zeros((2, 1), dtype=torch.int32),
+                        torch.zeros((1, 1), dtype=torch.int32), impl=impl)
+    with pytest.raises(ValueError, match="CUDA"):
+        page_scan_k.page_scan(recs, ids, q, lut, capacity=4, dim=16, rp=12)
+    with pytest.raises(ValueError, match="CUDA"):
+        pq_adc_k.pq_adc(torch.zeros((1, 3, 4), dtype=torch.uint8), lut[:1])
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming_k.hamming(torch.zeros((5, 2), dtype=torch.int32),
+                          torch.zeros((1, 2), dtype=torch.int32))
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    """A host that cannot compile the kernels gets an error, never a
+    silent switch to the plain versions."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+    assert _build.library_path().parent == tmp_path
+    assert _build.library_path().name.startswith("libpageann_kernels-")
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b(?!_)", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [
+        f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+        for f in files for m in pattern.finditer(f.read_text())
+    ]
+    assert not offenders, offenders
