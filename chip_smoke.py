@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 5-7 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 6-9 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -10,14 +10,25 @@ version. Phases, one JSON line each:
   device    the card's name and power limit
   build     compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels   each kernel vs its plain version at the main path's shapes
-            (and both record packings, d = 32 / 128 / 200), with times
+            (and both record packings, d = 32 / 128 / 200), with times;
+            the masked (filtered) and staged (streamed) page-scan variants
   sift1m    the kernels on SIFT1M-size state: 1,000,000 vectors at d = 128
-            in HYBRID pages (about 2 GB of records on the device)
-  e2e       ``PageANNIndex.build`` -> ``search`` -> ``recall_at_k`` in
-            HYBRID (the main path) and MEM_ALL (members-only page scan),
-            once through the kernels and once through the plain versions
+            in HYBRID pages (about 2 GB of records on the device), and one
+            streamed hop with 25% of those pages on the card and the rest
+            read from a pages.bin memmap
+  e2e       ``PageANNIndex.build`` (with a seeded metadata schema) ->
+            ``search`` -> ``recall_at_k`` in HYBRID (the main path) and
+            MEM_ALL (members-only page scan), once through the kernels and
+            once through the plain versions
+  stream    each e2e index saved and reloaded under a 0.25 memory budget:
+            the streamed search must equal the resident one exactly
+  filter    filtered search at selectivities 0.5 / 0.1 / 0.01 and a
+            conjunction, resident and streamed, kernels and plain, held to
+            a post-filter brute force
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
+Each kernel's launches come from the path it serves, counted from 0 just
+before that path's run. Then one ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without the last line. It also exits non-zero when no
 CUDA device is present or when it is run outside a checkout of the repo.
@@ -26,26 +37,41 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+SCRATCH = ROOT / "build" / "smoke_tmp"   # temporary artifacts (gitignored)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-4     # float kernels: the summation order differs
 N_QUERIES = 1000            # one search batch, as a serving engine would send
+BUDGET = 0.25               # the streamed tier: a quarter of the pages resident
+SELECTIVITIES = (0.5, 0.1, 0.01)
+MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered search
+
+_CU = "src/repro_torch/kernels/csrc/page_scan.cu"
+_PAGE_SCAN = "src/repro/kernels/page_scan.py:296"
+_PAGE_SCAN_RECS = "src/repro/kernels/page_scan.py:179"
 
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
-    "page_scan": ("src/repro_torch/kernels/csrc/page_scan.cu",
-                  "src/repro/kernels/page_scan.py:296"),
-    "page_scan_members": ("src/repro_torch/kernels/csrc/page_scan.cu",
-                          "src/repro/kernels/page_scan.py:296"),
+    "page_scan": (_CU, _PAGE_SCAN),
+    "page_scan_members": (_CU, _PAGE_SCAN),
+    "page_scan_masked": (_CU, _PAGE_SCAN),
+    "page_scan_members_masked": (_CU, _PAGE_SCAN),
+    "page_scan_recs": (_CU, _PAGE_SCAN_RECS),
+    "page_scan_recs_members": (_CU, _PAGE_SCAN_RECS),
+    "page_scan_recs_masked": (_CU, _PAGE_SCAN_RECS),
+    "page_scan_recs_members_masked": (_CU, _PAGE_SCAN_RECS),
     "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                "src/repro/kernels/pq_adc.py:34"),
     "hamming": ("src/repro_torch/kernels/csrc/hamming.cu",
@@ -116,10 +142,14 @@ class Smoke:
                 raise AssertionError(f"{name}: kernel and plain version differ")
             err = 0.0
         else:
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name}: kernel returned non-finite values")
+            # +inf only where a filter masked a member; equal positions
+            if not torch.equal(torch.isfinite(got), torch.isfinite(want)) \
+                    or torch.isnan(got).any():
+                raise AssertionError(f"{name}: kernel's non-finite values "
+                                     "differ from the plain version's")
             torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-            err = float((got - want).abs().max())
+            fin = torch.isfinite(got)
+            err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
         self.err[name] = max(self.err[name], err)
         return err
 
@@ -174,49 +204,80 @@ def _records_np(rng, pages, cap, dim, rp, m):
     return pack_page_records(vecs, codes)
 
 
+def _variant(adc: bool, masked: bool, staged: bool) -> str:
+    return ("page_scan" + ("_recs" if staged else "")
+            + ("" if adc else "_members") + ("_masked" if masked else ""))
+
+
 def _page_scan_case(s: Smoke, recs, ids, q, lut, *, cap, dim, rp, m,
-                    adc: bool, reps: int) -> dict:
-    """Kernel vs plain version on one input, with times and the byte bound."""
+                    adc: bool, reps: int, masked: bool = False,
+                    staged: bool = False) -> dict:
+    """Kernel vs plain version on one input, with times and the byte bound.
+
+    ``masked`` adds a filter mask passing about half the members;
+    ``staged`` scores the records gathered into a (Q, b, rows, 128) batch,
+    as the streamed tier hands them over, and must equal the by-id kernel
+    bit for bit."""
     torch = s.torch
     from repro_torch.kernels import ops
-
-    name = "page_scan" if adc else "page_scan_members"
-    kw = dict(capacity=cap, dim=dim, rp=rp, compute_adc=adc)
-    got = ops.page_scan(recs, ids, q, lut, **kw)
-    want = ops.page_scan(recs, ids, q, lut, impl="plain", **kw)
-    err = s.compare(name, got[0], want[0])
-
-    # the kernel alone, on inputs already in its dtype; call_ms below times
-    # the whole dispatch (the id cast included)
     from repro_torch.kernels import page_scan as page_scan_k
 
+    name = _variant(adc, masked, staged)
+    nq, b = ids.shape
+    mask = None
+    if masked:
+        gen = torch.Generator(device=recs.device).manual_seed(s.seed + 1)
+        mask = (torch.rand((nq, b, cap), generator=gen, device=recs.device)
+                < 0.5).float()
+    kw = dict(capacity=cap, dim=dim, rp=rp, compute_adc=adc, member_mask=mask)
+    # the kernel alone on inputs already in its dtype (``kernel``), the
+    # whole dispatch (``call``: the id cast included), the plain version
     ids32 = ids.to(torch.int32).contiguous()
+    lut_k = lut if adc else None
+    if staged:
+        recs_b = recs[ids.long()].contiguous()
 
-    def kernel():
-        return page_scan_k.page_scan(recs, ids32, q, lut if adc else None, **kw)
+        def kernel():
+            return page_scan_k.page_scan_recs(recs_b, q, lut_k, **kw)
 
-    def call():
-        return ops.page_scan(recs, ids, q, lut, **kw)
+        def call(impl=None):
+            return ops.page_scan_recs(recs_b, q, lut, impl=impl, **kw)
+    else:
+        def kernel():
+            return page_scan_k.page_scan(recs, ids32, q, lut_k, **kw)
 
-    def plain():
-        return ops.page_scan(recs, ids, q, lut, impl="plain", **kw)
+        def call(impl=None):
+            return ops.page_scan(recs, ids, q, lut, impl=impl, **kw)
 
+    got, want = call(), call("plain")
+    err = s.compare(name, got[0], want[0])
     if adc:
         err = max(err, s.compare(name, got[1], want[1]))
-    nq, b = ids.shape
+    if masked and not torch.equal(torch.isinf(got[0]), ~(mask > 0)):
+        raise AssertionError(f"{name}: +inf is not exactly where the mask is 0")
+    if staged:
+        by_id = ops.page_scan(recs, ids, q, lut, **kw)
+        if not (torch.equal(got[0], by_id[0])
+                and (not adc or torch.equal(got[1], by_id[1]))):
+            raise AssertionError(f"{name}: a staged record scores differently "
+                                 "from the same record read by page id")
     used_m = m if adc else 0
-    # each distinct page's members (cap x dim floats) and, with ADC, the
-    # rp columns of its M code rows; not the rows' padding lanes
-    pages_read = int(torch.unique(ids).numel())
-    bytes_ = (pages_read * (cap * dim + used_m * rp) * 4 + ids.numel() * 4
+    # each record's members (cap x dim floats) and, with ADC, the rp
+    # columns of its M code rows, not the rows' padding lanes: once per
+    # distinct page read by id, once per staged record (each is its own
+    # copy in device memory)
+    records = nq * b if staged else int(torch.unique(ids).numel())
+    bytes_ = (records * (cap * dim + used_m * rp) * 4
+              + (0 if staged else ids.numel() * 4)
               + q.numel() * 4 + (lut.numel() * 4 if adc else 0)
+              + (mask.numel() * 4 if masked else 0)
               + nq * b * (cap + (rp if adc else 0)) * 4)
     ops_ = nq * b * (cap * dim * 3 + rp * used_m)
     return dict(
         name=name, dim=dim, q=nq, b=b, capacity=cap, max_abs_err=err,
         ms=s.time_ms(kernel, reps),
         call_ms=s.call_ms(call, reps),
-        plain_ms=s.time_ms(plain, max(3, reps // 5)),
+        plain_ms=s.time_ms(lambda: call("plain"), max(3, reps // 5)),
         **_bound(bytes_, ops_),
         library_ms=None,
     )
@@ -309,10 +370,16 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
         row = _page_scan_case(s, recs, ids, q, lut, cap=cap, dim=cfg.dim,
                               rp=rp, m=m, adc=adc, reps=50)
         cases.append(row)
-        if cfg is cfg_hybrid:
-            s.rows["page_scan"] = row
-        if cfg is cfg_memall:
-            s.rows["page_scan_members"] = row
+        if cfg is cfg_hybrid or cfg is cfg_memall:
+            s.rows[row["name"]] = row
+            # the filtered (masked) and streamed (staged) variants at the
+            # same main-path shapes
+            for masked, staged in ((True, False), (False, True), (True, True)):
+                row = _page_scan_case(s, recs, ids, q, lut, cap=cap,
+                                      dim=cfg.dim, rp=rp, m=m, adc=adc,
+                                      reps=50, masked=masked, staged=staged)
+                s.rows[row["name"]] = row
+                cases.append(row)
         del recs
 
     m_mem = 2 * cfg_hybrid.pq_subspaces
@@ -369,6 +436,12 @@ def phase_sift1m(s: Smoke, cfg_hybrid, cfg_memall) -> None:
         row = _page_scan_case(s, recs, ids, q, lut, cap=cap, dim=128, rp=rp,
                               m=m, adc=adc, reps=20)
         emit("sift1m", pages=pages, record_bytes=recs.numel() * 4, **row)
+        if adc:
+            for masked, staged in ((True, False), (False, True)):
+                emit("sift1m", pages=pages, **_page_scan_case(
+                    s, recs, ids, q, lut, cap=cap, dim=128, rp=rp, m=m,
+                    adc=adc, reps=20, masked=masked, staged=staged))
+            _streamed_hop(s, recs, ids, q, lut, cap=cap, rp=rp)
         del recs
         torch.cuda.empty_cache()
     n_mem = -(-n // 6) * 6
@@ -384,6 +457,91 @@ def phase_sift1m(s: Smoke, cfg_hybrid, cfg_memall) -> None:
     qc = torch.randint(-2**31, 2**31 - 1, (nq, words), generator=gen,
                        device=dev, dtype=torch.int32)
     emit("sift1m", **_hamming_case(s, lsh, qc))
+
+
+def _streamed_hop(s: Smoke, recs, ids, q, lut, *, cap: int, rp: int) -> None:
+    """One hop of the streamed tier at SIFT1M size: the records go to a
+    pages.bin on the host's disk, a quarter of the pages (a seeded random
+    choice) stay on the card, and the hop's misses are read through a
+    ``PageFetcher`` over the memmap, copied to the card through a pinned
+    buffer and scored by ``page_scan_recs`` while the resident lanes go
+    through ``page_scan`` -- the steps of ``core.search.score_page_batch``,
+    timed one by one. The first hop reads after the file's pages were
+    dropped from the OS cache (``posix_fadvise``; the file system may keep
+    some), the second finds them in the fetcher's LRU stage or the OS
+    cache. The merged scores must equal the fully resident scan exactly."""
+    import numpy as np
+
+    torch = s.torch
+    from repro_torch.core.config import MemoryBudget
+    from repro_torch.core.stream import PageFetcher
+    from repro_torch.kernels import ops
+
+    dev = recs.device
+    pages, rows, lanes = recs.shape
+    nq, b = ids.shape
+    kw = dict(capacity=cap, dim=q.shape[1], rp=rp)
+    want = ops.page_scan(recs, ids, q, lut, **kw)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        path = tmp / "pages.bin"
+        t0 = time.perf_counter()
+        recs.cpu().numpy().tofile(path)
+        with open(path, "rb+") as f:
+            os.fsync(f.fileno())
+            os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+        write_s = time.perf_counter() - t0
+        n_res = MemoryBudget(fraction=BUDGET).resolve_pages(pages, rows * lanes * 4)
+        rng = np.random.default_rng(s.seed)
+        resident_ids = np.sort(rng.permutation(pages)[:n_res])
+        rmap = torch.full((pages,), -1, dtype=torch.int32, device=dev)
+        rmap[torch.as_tensor(resident_ids, device=dev)] = torch.arange(
+            n_res, dtype=torch.int32, device=dev)
+        recs_res = recs[torch.as_tensor(resident_ids, device=dev)]
+        fetcher = PageFetcher(np.memmap(path, dtype=np.float32, mode="r",
+                                        shape=(pages, rows, lanes)))
+        buf = torch.empty((nq * b, rows, lanes), dtype=torch.float32,
+                          pin_memory=True)
+        for label in ("cold", "warm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot = rmap[ids.long()]
+            resident = slot >= 0
+            miss_ids = ids[~resident].cpu().numpy()
+            t1 = time.perf_counter()
+            fetcher(miss_ids, out=buf.numpy())
+            t2 = time.perf_counter()
+            fetched = buf[: miss_ids.size].to(dev, non_blocking=True)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            staged = torch.zeros((nq, b, rows, lanes), device=dev)
+            staged[~resident] = fetched
+            ex_r, est_r = ops.page_scan(recs_res, torch.where(resident, slot, 0),
+                                        q, lut, **kw)
+            ex_s, est_s = ops.page_scan_recs(staged, q, lut, **kw)
+            lane = resident[:, :, None]
+            got = (torch.where(lane, ex_r, ex_s), torch.where(lane, est_r, est_s))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError("streamed hop: scores differ from the "
+                                     "fully resident scan")
+            fs = fetcher.fetch_stats()
+            emit("sift1m", name="streamed_hop", read=label, q=nq, b=b,
+                 pages=pages, resident_pages=n_res,
+                 write_and_drop_s=write_s if label == "cold" else None,
+                 misses=int(miss_ids.size), pages_fetched=fs["pages_fetched"],
+                 fetch_hits=fs["fetch_hits"],
+                 miss_bytes=int(miss_ids.size) * rows * lanes * 4,
+                 lookup_ms=(t1 - t0) * 1e3, host_fetch_ms=(t2 - t1) * 1e3,
+                 h2d_ms=(t3 - t2) * 1e3, scan_ms=(t4 - t3) * 1e3,
+                 host_fetch_gb_s=miss_ids.size * rows * lanes * 4 / (t2 - t1) / 1e9,
+                 h2d_gb_s=miss_ids.size * rows * lanes * 4 / (t3 - t2) / 1e9)
+            fetcher.reset_stats()
+        del fetcher
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _profile_search(index, q) -> dict:
@@ -421,23 +579,41 @@ def _profile_search(index, q) -> dict:
     )
 
 
+def make_data(n: int, dim: int, n_queries: int, seed: int):
+    """Vectors, queries and their metadata, all from ``seed``: one tag field
+    of 10 values and one uniform numeric field (``tests/test_filter.py``'s
+    schema, with ten tags instead of three)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import clustered_vectors, query_vectors
+
+    x = clustered_vectors(n, dim, num_clusters=64, seed=seed)
+    q = query_vectors(x, n_queries, seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    meta = {"topic": [f"t{i}" for i in rng.integers(0, 10, n)],
+            "score": rng.uniform(0.0, 1.0, n).tolist()}
+    return x, q, meta
+
+
 def run_e2e(cfg, n: int, n_queries: int, *, device: str, seed: int,
-            label: str = "e2e") -> dict:
-    """Build -> search -> recall through the port's entry points; then the
-    same search through the plain versions, which must agree."""
+            label: str = "e2e"):
+    """Build (with the seeded metadata schema) -> search -> recall through
+    the port's entry points; then the same search through the plain
+    versions, which must agree. Returns the emitted numbers and a dict of
+    what later phases reuse: the index, the data and the result."""
     import dataclasses
 
     import numpy as np
 
-    from repro_torch.core import PageANNIndex, recall_at_k
+    from repro_torch.core import MetadataSchema, PageANNIndex, recall_at_k
     from repro_torch.core.vamana import brute_force_knn
-    from repro_torch.data.pipeline import clustered_vectors, query_vectors
     from repro_torch.kernels import ops
 
-    x = clustered_vectors(n, cfg.dim, num_clusters=64, seed=seed)
-    q = query_vectors(x, n_queries, seed=seed + 1)
+    x, q, meta = make_data(n, cfg.dim, n_queries, seed)
     t0 = time.perf_counter()
-    index = PageANNIndex.build(x, cfg, device=device)
+    index = PageANNIndex.build(
+        x, cfg, schema=MetadataSchema(tags=("topic",), numerics=("score",)),
+        metadata=meta, device=device)
     build_s = time.perf_counter() - t0
     truth = brute_force_knn(x, q, 10)
 
@@ -489,7 +665,7 @@ def run_e2e(cfg, n: int, n_queries: int, *, device: str, seed: int,
         launches=launches,
         profile=profile,
         launches_per_hop={k: v / max(1.0, float(res.hops.max()))
-                          for k, v in launches.items()},
+                          for k, v in launches.items() if v},
     )
     emit(label, **out)
     if not (np.isfinite(res.dists[:, 0]).all() and res.ids.shape == (n_queries, 10)):
@@ -497,7 +673,168 @@ def run_e2e(cfg, n: int, n_queries: int, *, device: str, seed: int,
     if agree < 0.99:
         raise AssertionError(f"{label}: kernel and plain paths agree on ids "
                              f"for only {agree:.4f} of queries")
-    return out
+    return out, dict(index=index, x=x, q=q, meta=meta, result=res, wall=wall)
+
+
+def _median_wall(fn, device: str, runs: int = 3) -> float:
+    import numpy as np
+
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
+
+
+def run_stream(ctx: dict, *, device: str, label: str = "stream") -> dict:
+    """Save the e2e index, reload it under the memory budget and search the
+    same queries: every field must equal the resident search's exactly.
+    Adds the streamed index to ``ctx`` for the filter phase."""
+    import numpy as np
+
+    from repro_torch.core import PageANNIndex
+    from repro_torch.kernels import ops
+
+    index, q, want = ctx["index"], ctx["q"], ctx["result"]
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    directory = tempfile.mkdtemp(dir=SCRATCH)
+    try:
+        index.save(directory)
+        streamed = PageANNIndex.load(directory, device=device,
+                                     memory_budget=BUDGET)
+        streamed.search(q, k=10)          # warm-up: pinned buffer, OS cache
+        streamed.fetcher.reset_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = streamed.search(q, k=10)    # the streamed path, counted
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        fetch = streamed.fetch_stats()
+        for field in got._fields:
+            if not np.array_equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f"{label}: streamed {field} differ from "
+                                     "the resident search's")
+        recs_kernel = ("page_scan_recs" if index.cfg.memory_mode.value != "mem_all"
+                       else "page_scan_recs_members")
+        if device == "cuda" and launches[recs_kernel] <= 0:
+            raise AssertionError(f"{label}: {recs_kernel} never launched")
+        stream_wall = _median_wall(lambda: streamed.search(q, k=10), device)
+        resident_wall = _median_wall(lambda: index.search(q, k=10), device)
+        hops = max(1, int(got.hops.max()))
+        out = dict(
+            mode=index.cfg.memory_mode.value, budget=BUDGET,
+            resident_pages=streamed.stats.resident_pages,
+            total_pages=streamed.stats.pages,
+            resident_bytes=streamed.stats.resident_bytes,
+            pages_fetched=fetch["pages_fetched"], fetch_hits=fetch["fetch_hits"],
+            fetch_wall_ms=fetch["fetch_wall_s"] * 1e3,
+            fetch_calls=len(fetch["wall_window"]),
+            equal_to_resident=True, launches=launches,
+            counted_wall_ms=wall * 1e3,
+            qps=len(q) / stream_wall, resident_qps=len(q) / resident_wall,
+            host_ms_per_hop=stream_wall * 1e3 / hops,
+            resident_host_ms_per_hop=resident_wall * 1e3 / hops,
+        )
+        emit(label, **out)
+        ctx["streamed"] = streamed
+        return out
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def run_filter(ctx: dict, *, device: str, exprs: dict,
+               label: str = "filter") -> dict:
+    """Filtered search, resident and streamed, through the kernels and the
+    plain versions, held to a post-filter brute force over the same
+    metadata. Returns the launches of the resident and the streamed runs."""
+    import numpy as np
+
+    from repro_torch.core import FilterParams, recall_at_k
+    from repro_torch.core import filter as filter_mod
+    from repro_torch.core.vamana import brute_force_knn
+    from repro_torch.kernels import ops
+
+    index, streamed, x, q = ctx["index"], ctx["streamed"], ctx["x"], ctx["q"]
+    beam0 = index.default_params.beam_width
+    cap = FilterParams().max_filter_oversample
+    for expr in exprs.values():
+        index.search(q[:8], k=10, filter=expr)        # warm-up per beam width
+    runs = {}
+    ops.reset_launch_counts()
+    for name, expr in exprs.items():                  # resident, counted
+        t0 = time.perf_counter()
+        res = index.search(q, k=10, filter=expr)
+        runs[name] = dict(res=res, wall=time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    for name, expr in exprs.items():                  # streamed, counted
+        runs[name]["streamed"] = streamed.search(q, k=10, filter=expr)
+    stream_launches = ops.launch_counts()
+    for name, expr in exprs.items():
+        r = runs[name]
+        res, got = r["res"], r["streamed"]
+        plain = index.search(q, k=10, filter=expr, impl="plain")
+        cf, sel = index.compiled_filter(expr)
+        passing = filter_mod.filter_mask_np(cf, index.meta_host.tags,
+                                            index.meta_host.nums)
+        pids = np.flatnonzero(passing)
+        truth = np.full((len(q), 10), -1, np.int64)
+        take = min(10, len(pids))
+        truth[:, :take] = pids[brute_force_knn(x[pids], q, take)]
+        recall = recall_at_k(res.ids, truth)
+        agree = float((res.ids == plain.ids).all(1).mean())
+        ok = np.where(res.ids >= 0, passing[np.maximum(res.ids, 0)], True)
+        out = dict(
+            mode=index.cfg.memory_mode.value, filter=name, selectivity=sel,
+            beam=beam0 * index._filter_oversample(sel, cap),
+            recall_at_10=recall, plain_recall_at_10=recall_at_k(plain.ids, truth),
+            ids_agree_share=agree, all_pass=bool(ok.all()),
+            mean_ios=float(res.ios.mean()), mean_hops=float(res.hops.mean()),
+            qps=len(q) / r["wall"],
+            streamed_qps=len(q) / _median_wall(
+                lambda: streamed.search(q, k=10, filter=expr), device, runs=1),
+        )
+        emit(label, **out)
+        for field in res._fields:
+            if not np.array_equal(getattr(got, field), getattr(res, field)):
+                raise AssertionError(f"{label} {name}: streamed {field} differ "
+                                     "from the resident search's")
+        if not ok.all():
+            raise AssertionError(f"{label} {name}: a returned id fails the filter")
+        if agree < 0.99:
+            raise AssertionError(f"{label} {name}: kernel and plain paths agree "
+                                 f"on ids for only {agree:.4f} of queries")
+        if recall < MIN_RECALL:
+            raise AssertionError(f"{label} {name}: recall@10 {recall:.4f} < "
+                                 f"{MIN_RECALL}")
+    emit(label, mode=index.cfg.memory_mode.value, launches=launches,
+         stream_launches=stream_launches)
+    return dict(launches=launches, stream_launches=stream_launches)
+
+
+def filter_exprs(scores, *, full: bool) -> dict:
+    """The predicates of the filter phase: numeric bounds at each
+    selectivity (quantiles of the score column) and a tag-and-numeric
+    conjunction; ``full=False`` keeps one bound and the conjunction."""
+    import numpy as np
+
+    from repro_torch.core import Num, Tag
+
+    scores = np.asarray(scores)
+    sels = SELECTIVITIES if full else (0.1,)
+    exprs = {f"score<=q{sel}": Num("score").le(float(np.quantile(scores, sel)))
+             for sel in sels}
+    exprs["topic=t3&score<=0.5"] = (Tag("topic") == "t3") & Num("score").le(0.5)
+    return exprs
 
 
 def main(argv=None) -> int:
@@ -537,20 +874,37 @@ def main(argv=None) -> int:
     phase_sift1m(smoke, cfg_h, cfg_m)
     torch.cuda.empty_cache()
 
-    main_run = run_e2e(cfg_h, args.n, N_QUERIES, device="cuda",
-                       seed=args.seed)
-    if main_run["recall_at_10"] < 0.90:
-        raise AssertionError(f"HYBRID recall@10 {main_run['recall_at_10']} < 0.90")
-    memall = run_e2e(cfg_m, args.n, N_QUERIES, device="cuda",
-                     seed=args.seed, label="e2e_memall")
-    launches = dict(main_run["launches"])
-    launches["page_scan_members"] = memall["launches"]["page_scan_members"]
-    for name in ("page_scan", "pq_adc", "hamming"):
-        if main_run["launches"][name] <= 0:
-            raise AssertionError(f"{name} never launched on the HYBRID path")
-    for name in ("page_scan_members", "pq_adc", "hamming"):
-        if memall["launches"][name] <= 0:
-            raise AssertionError(f"{name} never launched on the MEM_ALL path")
+    # each path's launches, counted from 0 just before its run: the e2e
+    # searches (page_scan, pq_adc, hamming; members-only in MEM_ALL), the
+    # streamed searches (page_scan_recs*), the filtered ones (*_masked)
+    launches = {}
+    for cfg, label in ((cfg_h, "e2e"), (cfg_m, "e2e_memall")):
+        hybrid = cfg is cfg_h
+        run, ctx = run_e2e(cfg, args.n, N_QUERIES, device="cuda",
+                           seed=args.seed, label=label)
+        if hybrid and run["recall_at_10"] < MIN_RECALL:
+            raise AssertionError(
+                f"HYBRID recall@10 {run['recall_at_10']} < {MIN_RECALL}")
+        names = (("page_scan", "pq_adc", "hamming") if hybrid
+                 else ("page_scan_members",))
+        for name in names:
+            launches[name] = run["launches"][name]
+        stream = run_stream(ctx, device="cuda",
+                            label="stream" if hybrid else "stream_memall")
+        name = "page_scan_recs" if hybrid else "page_scan_recs_members"
+        launches[name] = stream["launches"][name]
+        filt = run_filter(ctx, device="cuda",
+                          exprs=filter_exprs(ctx["meta"]["score"], full=hybrid),
+                          label="filter" if hybrid else "filter_memall")
+        name = "page_scan_masked" if hybrid else "page_scan_members_masked"
+        launches[name] = filt["launches"][name]
+        name = "page_scan_recs_masked" if hybrid else "page_scan_recs_members_masked"
+        launches[name] = filt["stream_launches"][name]
+        del ctx
+        torch.cuda.empty_cache()
+    never = [name for name in KERNELS if launches.get(name, 0) <= 0]
+    if never:
+        raise AssertionError(f"never launched on their paths: {never}")
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

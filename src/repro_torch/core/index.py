@@ -1,11 +1,14 @@
 """High-level PageANN index: build / search / save (Fig. 3 pipeline).
 
-Port of ``repro.core.index`` for the fully resident index. Pre-processing:
+Port of ``repro.core.index`` (no autotuning or adaptive search yet; see
+ROADMAP queue A, item 5). Pre-processing:
 Vamana vector graph -> page-node grouping (Alg. 1) -> PQ codebooks (coarse
 on-page + fine in-memory) -> id reassignment + page packing (Sec 4.2/5) ->
 LSH routing index -> memory-disk coordination (Sec 4.3) with optional
-warm-up page caching. ``search`` runs ``core.search.batch_search`` on the
-index's device and translates results back to original vector ids.
+warm-up page caching, and metadata columns for filtered search when a
+schema is given. ``search`` runs ``core.search.batch_search`` (or
+``stream_search`` on an index loaded under a memory budget) on the index's
+device and translates results back to original vector ids.
 """
 from __future__ import annotations
 
@@ -15,13 +18,20 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import filter as filter_mod
 from repro_torch.core import layout as layout_mod
 from repro_torch.core import lsh as lsh_mod
 from repro_torch.core import page_graph as pg_mod
 from repro_torch.core import pq as pq_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core import vamana as vamana_mod
-from repro_torch.core.config import PageANNConfig, SearchParams, resolve_search_params
+from repro_torch.core.config import (
+    FilterParams,
+    PageANNConfig,
+    SearchParams,
+    resolve_search_params,
+)
+from repro_torch.core.filter import FilterExpr, MetaArrays, MetadataSchema
 from repro_torch.device import resolve_device
 
 PAD = -1
@@ -43,8 +53,9 @@ class BuildStats:
     # total bytes of the disk tier: the projected pages.bin size for a
     # freshly built index, the file's actual size for a loaded one
     disk_bytes: int = 0
-    # page records pinned on the device and their bytes (the whole store:
-    # the port has no streamed tier yet)
+    # page records pinned on the device and their bytes: the whole store,
+    # or under a memory budget the resident part (the rest streams from the
+    # pages.bin memmap per hop)
     resident_pages: int = 0
     resident_bytes: int = 0
 
@@ -59,8 +70,26 @@ class PageANNIndex:
     stats: BuildStats
     device: torch.device
     # full residency priority, hottest page first (warm_cache access
-    # counts); persisted so the reference's budgeted load can pin by it
+    # counts); persisted so a budgeted load pins the hottest pages
     page_order: np.ndarray | None = None
+    # streamed tier (set by a memory-budgeted load, None otherwise): the
+    # host reader over the pages.bin memmap, and the budget it was loaded at
+    fetcher: object | None = None
+    memory_budget: object | None = None
+    # filtered search: the metadata schema, the tag vocabularies (field ->
+    # tuple of values; codes are positions), the page-slot-aligned columns
+    # on the device the page scan masks from, and the original-order host
+    # copy (selectivity probe, brute-force oracle). None/empty without a
+    # schema.
+    schema: MetadataSchema | None = None
+    vocab: dict = dataclasses.field(default_factory=dict)
+    meta: MetaArrays | None = None
+    meta_host: MetaArrays | None = None
+    # per-FilterExpr compiled form and measured selectivity
+    _filter_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # the streamed tier's pinned staging buffer, kept across searches
+    _stage: search_mod.PinnedStage | None = dataclasses.field(
+        default=None, repr=False)
 
     # ------------------------------------------------------------------ build
     @staticmethod
@@ -69,17 +98,25 @@ class PageANNIndex:
         cfg: PageANNConfig,
         mem_subspaces: int | None = None,
         warmup_queries: np.ndarray | None = None,
+        schema: MetadataSchema | None = None,
+        metadata=None,
         *,
         device: str | torch.device = "cuda",
     ) -> "PageANNIndex":
         """Build an index over ``x`` (N, d). The greedy searches of the
         Vamana build, PQ training and encoding run on ``device``; graph
-        pruning, page grouping and packing run on the host."""
+        pruning, page grouping and packing run on the host.
+
+        ``schema`` and ``metadata`` (dict of columns or list of dicts, one
+        entry per vector) enable filtered search (``search(filter=...)``).
+        """
         dev = resolve_device(device)
         x = np.ascontiguousarray(x, np.float32)
         n, d = x.shape
         if d != cfg.dim:
             raise ValueError(f"vectors have dim {d}, config says {cfg.dim}")
+        if metadata is not None and schema is None:
+            raise ValueError("metadata= requires a schema=")
 
         t0 = time.perf_counter()
         nbrs = vamana_mod.build_vamana(
@@ -134,6 +171,19 @@ class PageANNIndex:
         tier = layout_mod.build_memory_tier(
             mem_codes_new, mem_books, disk_books, cfg.memory_mode, device=dev
         )
+        # metadata columns: encode in original-id order, scatter to page-
+        # slot order alongside the member vectors
+        vocab: dict = {}
+        meta = meta_host = None
+        if schema is not None:
+            columns = filter_mod.normalize_metadata(
+                schema, metadata if metadata is not None else {}, n
+            )
+            vocab = filter_mod.build_vocab(schema, columns)
+            meta_host = filter_mod.encode_metadata(schema, vocab, columns, n)
+            meta = MetaArrays(*layout_mod.reassign_metadata(
+                meta_host.tags, meta_host.nums, store)).to(dev)
+
         tile = store.padded_tile_bytes()
         idx = PageANNIndex(
             cfg=cfg,
@@ -160,6 +210,10 @@ class PageANNIndex:
                 resident_bytes=store.num_pages * tile,
             ),
             device=dev,
+            schema=schema,
+            vocab=vocab,
+            meta=meta,
+            meta_host=meta_host,
         )
         if warmup_queries is not None and cfg.cache_pages > 0:
             idx.warm_cache(warmup_queries)
@@ -210,14 +264,66 @@ class PageANNIndex:
         return torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
 
     def _raw_search(
-        self, q: torch.Tensor, params: SearchParams, impl: str | None = None
+        self, q: torch.Tensor, params: SearchParams, impl: str | None = None,
+        meta: MetaArrays | None = None, cfilter=None,
     ) -> search_mod.SearchResult:
-        return search_mod.batch_search(
-            q, self.data, params,
-            capacity=self.store.capacity,
-            mode=self.cfg.memory_mode.value,
-            impl=impl,
+        kw = dict(capacity=self.store.capacity,
+                  mode=self.cfg.memory_mode.value,
+                  meta=meta, cfilter=cfilter, impl=impl)
+        if self.fetcher is not None:
+            if self._stage is None:
+                self._stage = search_mod.PinnedStage(self.fetcher)
+            return search_mod.stream_search(
+                q, self.data, params, fetcher=self.fetcher, stage=self._stage,
+                **kw)
+        return search_mod.batch_search(q, self.data, params, **kw)
+
+    # ----------------------------------------------------------------- filter
+    def compiled_filter(self, expr: FilterExpr):
+        """Resolve a ``FilterExpr`` against this index's schema/vocab and
+        measure its selectivity (fraction of vectors passing) over the host
+        metadata. Cached per expression; the selectivity sets the beam's
+        oversampling. Returns (CompiledFilter, selectivity)."""
+        cached = self._filter_cache.get(expr)
+        if cached is not None:
+            return cached
+        cf = filter_mod.compile_filter(expr, self.schema, self.vocab)
+        mask = filter_mod.filter_mask_np(
+            cf, self.meta_host.tags, self.meta_host.nums
         )
+        sel = float(mask.mean()) if mask.size else 0.0
+        self._filter_cache[expr] = (cf, sel)
+        return cf, sel
+
+    @staticmethod
+    def _filter_oversample(selectivity: float, cap: int) -> int:
+        """Pow2 beam-widening factor for a predicate's selectivity: a
+        filter passing 1/s of the corpus needs ~s x the frontier to surface
+        as many passing candidates as the unfiltered search, bucketed to
+        powers of two and clamped to ``cap``."""
+        if selectivity <= 0.0:
+            return cap
+        need = 1.0 / selectivity
+        b = 1
+        while b < need and b < cap:
+            b *= 2
+        return min(b, cap)
+
+    def metadata_by_original_id(self) -> dict[str, list] | None:
+        """Decoded metadata columns in original id order (missing -> None);
+        ``None`` when the index has no schema."""
+        if self.schema is None:
+            return None
+        return filter_mod.decode_metadata(
+            self.schema, self.vocab, self.meta_host
+        )
+
+    def fetch_stats(self) -> dict:
+        """Streamed-tier counters (``pages_fetched`` / ``fetch_hits`` /
+        ``fetch_wall_s``); zeros when fully resident."""
+        if self.fetcher is None:
+            return dict(pages_fetched=0, fetch_hits=0, fetch_wall_s=0.0)
+        return self.fetcher.fetch_stats()
 
     def translate_ids(self, ids: np.ndarray) -> np.ndarray:
         """Reassigned (page-packed) vector ids -> original ids, PAD kept."""
@@ -233,7 +339,8 @@ class PageANNIndex:
         k: int | None = None,
         params: SearchParams | None = None,
         *,
-        filter=None,
+        filter: FilterExpr | None = None,
+        filter_params: FilterParams | None = None,
         impl: str | None = None,
     ) -> search_mod.SearchResult:
         """Search; returns ORIGINAL vector ids as numpy arrays.
@@ -242,13 +349,25 @@ class PageANNIndex:
         config); ``k`` overrides ``params.k`` when given. ``impl="plain"``
         runs the kernels' plain versions on the index's device (for
         comparing the two; the default runs the kernels on a GPU).
+
+        ``filter`` restricts results to vectors whose metadata satisfies
+        the predicate (``core.filter``): non-passing members score ``+inf``
+        inside the page scan, and the beam is widened by a pow2 factor of
+        the predicate's measured selectivity (at most
+        ``filter_params.max_filter_oversample``) so recall matches a
+        post-filter brute force. ``filter=None`` is the unfiltered search.
         """
-        if filter is not None:
-            raise NotImplementedError(
-                "filtered search is not ported yet: ROADMAP queue A, item 6"
-            )
         p = self.resolve_params(k, params)
-        res = self._raw_search(self._queries(queries), p, impl=impl)
+        meta = cfilter = None
+        if filter is not None:
+            fp = filter_params if filter_params is not None else FilterParams()
+            cfilter, sel = self.compiled_filter(filter)
+            factor = self._filter_oversample(sel, fp.max_filter_oversample)
+            if factor > 1:
+                p = p.replace(beam_width=p.beam_width * factor)
+            meta = self.meta
+        res = self._raw_search(self._queries(queries), p, impl=impl,
+                               meta=meta, cfilter=cfilter)
         return search_mod.SearchResult(
             ids=self.translate_ids(res.ids.cpu().numpy()),
             dists=res.dists.cpu().numpy(),
@@ -267,7 +386,11 @@ class PageANNIndex:
     @classmethod
     def load(cls, directory: str, *, device: str | torch.device = "cuda",
              memory_budget=None) -> "PageANNIndex":
-        """Reload a saved index (saved by this package or the reference)."""
+        """Reload a saved index (saved by this package or the reference).
+
+        ``memory_budget`` (a ``MemoryBudget``, a byte count, a fraction or
+        a string such as ``"512MB"``) keeps only the hottest pages that fit
+        on the device and streams the rest from ``pages.bin`` per hop."""
         from repro_torch.core import persist
 
         return persist.load_pageann(

@@ -32,12 +32,17 @@ from repro_torch.kernels.record_layout import (  # noqa: F401  (re-exports)
 
 @dataclasses.dataclass
 class PageStore:
-    """The 'disk tier': every page record, resident on the device.
+    """The 'disk tier': the page records the search reads.
 
     ``recs`` is the physical page record the search reads through the
     ``page_scan`` kernel; neighbour ids and the count vectors ride as small
     int tensors beside it. ``vecs`` / ``nbr_codes`` are host-side numpy
     views for build tooling and tests; they never reach the device.
+
+    Under a memory budget (``persist.load_pageann(memory_budget=...)``)
+    ``recs`` holds only the resident subset, ``resident_map[p]`` is the row
+    of ``recs`` holding page p or -1, and ``recs_host`` is the full page
+    file (the ``pages.bin`` memmap) the misses are read from per hop.
     """
 
     vecs: np.ndarray           # (P, capacity, d) f32 — member vectors (host)
@@ -51,10 +56,28 @@ class PageStore:
     # id reassignment maps (host-side numpy; not used on the search path)
     new_to_old: np.ndarray     # (P * capacity,), PAD for empty slots
     old_to_new: np.ndarray     # (N,)
+    # streamed tier (None: fully resident, ``recs`` holds every page)
+    resident_map: torch.Tensor | None = None   # (P,) int32, -1 = streamed
+    recs_host: np.ndarray | None = None        # (P, rows, 128) f32 memmap
 
     @property
     def num_pages(self) -> int:
         return int(self.vecs.shape[0])
+
+    @property
+    def resident_pages(self) -> int:
+        """Pages pinned on the device (== num_pages when fully resident)."""
+        return int(self.recs.shape[0])
+
+    @property
+    def resident_bytes(self) -> int:
+        """Device bytes of the pinned page-record region."""
+        return self.resident_pages * self.padded_tile_bytes()
+
+    @property
+    def num_vectors(self) -> int:
+        """Real (non-pad) vectors in the store."""
+        return int(self.old_to_new.shape[0])
 
     def logical_page_bytes(self, cfg: PageANNConfig) -> int:
         """Bytes per page under the paper's Sec 4.2 equation (pre-padding)."""
@@ -267,3 +290,38 @@ def build_memory_tier(
 def reassigned_vectors(store: PageStore) -> np.ndarray:
     """Vectors in reassigned order, zero rows for padded slots: (P*cap, d)."""
     return np.asarray(store.vecs).reshape(-1, store.dim)
+
+
+def reassign_metadata(tags: np.ndarray, nums: np.ndarray, store: PageStore):
+    """Scatter original-id metadata columns into page-slot order.
+
+    tags: (N, T) int32 codes, nums: (N, Nn) f32 in original id order (as
+    ``filter.encode_metadata`` makes them). Returns the (P*cap, T) /
+    (P*cap, Nn) slot-aligned arrays the filtered page scan gathers from:
+    row ``page * capacity + slot`` holds the metadata of the vector placed
+    there, the same ``new_to_old`` scatter the member vectors use. Pad
+    slots keep the missing sentinels (-1 / NaN), which match no clause.
+    """
+    n2o = store.new_to_old
+    rows = n2o.shape[0]
+    out_tags = np.full((rows, tags.shape[1]), -1, np.int32)
+    out_nums = np.full((rows, nums.shape[1]), np.nan, np.float32)
+    valid = n2o != PAD
+    out_tags[valid] = tags[n2o[valid]]
+    out_nums[valid] = nums[n2o[valid]]
+    return out_tags, out_nums
+
+
+def unreassign_metadata(
+    slot_tags: np.ndarray, slot_nums: np.ndarray, store: PageStore
+):
+    """Inverse of :func:`reassign_metadata`: slot-aligned columns back to
+    original-id order (what ``load`` rebuilds the host copy from)."""
+    n2o = store.new_to_old
+    n = store.num_vectors
+    tags = np.full((n, slot_tags.shape[1]), -1, np.int32)
+    nums = np.full((n, slot_nums.shape[1]), np.nan, np.float32)
+    valid = n2o != PAD
+    tags[n2o[valid]] = slot_tags[valid]
+    nums[n2o[valid]] = slot_nums[valid]
+    return tags, nums

@@ -1,17 +1,23 @@
 """On-disk index persistence: port of ``repro.core.persist`` for
-``kind="pageann"``, fully resident.
+``kind="pageann"``.
 
 The artifact is the reference's, byte for byte in layout:
 
-  <dir>/manifest.json   versioned JSON: kind, config, geometry, build stats
-  <dir>/pages.bin       the packed page records as raw page-aligned f32
+  <dir>/manifest.json   versioned JSON: kind, config, geometry, build stats,
+                        residency, metadata schema and vocabulary
+  <dir>/pages.bin       the packed page records as raw page-aligned f32,
+                        opened with ``np.memmap`` on load
   <dir>/arrays.npz      numpy sidecars: memory tier, LSH router, id maps,
                         per-page counts and neighbour ids
+  <dir>/meta.npz        page-slot-aligned metadata columns (only with a
+                        schema)
 
 It is framework-neutral, so ``load_pageann`` is how an index built and
 saved by the JAX package reaches the port (and the reverse through
 ``save_pageann``). uint32 LSH codes are stored as uint32 and held in torch
-as int32 views of the same bits. Unreadable artifacts raise
+as int32 views of the same bits. A load under a memory budget pins the
+hottest pages on the device and serves the rest from the memmap per hop
+(``core.stream.PageFetcher``). Unreadable artifacts raise
 :class:`IndexFormatError` as the reference does.
 """
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import zipfile
 
 import numpy as np
 import torch
@@ -26,7 +33,9 @@ import torch
 from repro_torch.core import layout as layout_mod
 from repro_torch.core import page_graph as pg_mod
 from repro_torch.core import search as search_mod
-from repro_torch.core.config import MemoryMode, PageANNConfig
+from repro_torch.core import stream as stream_mod
+from repro_torch.core.config import MemoryBudget, MemoryMode, PageANNConfig
+from repro_torch.core.filter import MetaArrays, MetadataSchema
 from repro_torch.core.lsh import LSHIndex
 from repro_torch.device import resolve_device
 
@@ -92,6 +101,82 @@ def _check_pages_bin(directory: str, doc: dict) -> str:
     return path
 
 
+def _schema_to_json(index) -> dict | None:
+    """The manifest ``schema`` section: field declaration + tag
+    vocabulary. ``None`` when the index carries no metadata."""
+    if index.schema is None:
+        return None
+    doc = index.schema.to_json()
+    doc["vocab"] = {f: list(vs) for f, vs in index.vocab.items()}
+    return doc
+
+
+def _load_meta(directory: str, doc: dict, store, dev):
+    """(schema, vocab, meta on ``dev``, meta_host) from the manifest
+    ``schema`` section and the ``meta.npz`` sidecar. The two must agree; a
+    sidecar from another collection or a hand-edited manifest fails here
+    as :class:`IndexFormatError`, not deep inside a filtered search."""
+    schema_doc = doc.get("schema")
+    path = os.path.join(directory, META_NPZ)
+    if schema_doc is None:
+        if os.path.isfile(path):
+            raise IndexFormatError(
+                f"{path}: metadata sidecar present but the manifest has "
+                "no schema section"
+            )
+        return None, {}, None, None
+    if not os.path.isfile(path):
+        raise IndexFormatError(
+            f"{path}: manifest declares a metadata schema but the "
+            "metadata sidecar is missing"
+        )
+    try:
+        schema = MetadataSchema.from_json(schema_doc)
+        vocab = {
+            f: tuple(vs) for f, vs in schema_doc.get("vocab", {}).items()
+        }
+    except (TypeError, ValueError, AttributeError) as e:
+        raise IndexFormatError(
+            f"{directory}: garbled manifest schema section: {e}"
+        )
+    unknown = sorted(set(vocab) - set(schema.tags))
+    if unknown:
+        raise IndexFormatError(
+            f"{directory}: manifest vocab names fields not in the "
+            f"schema: {unknown}"
+        )
+    try:
+        with np.load(path) as z:
+            arrays = {name: z[name] for name in z.files}
+    except (OSError, ValueError, EOFError, zipfile.BadZipFile) as e:
+        raise IndexFormatError(f"{path}: unreadable metadata sidecar: {e}")
+    if not {"tags", "nums"} <= set(arrays):
+        raise IndexFormatError(
+            f"{path}: metadata sidecar is missing arrays "
+            f"(found {sorted(arrays)}, need ['nums', 'tags'])"
+        )
+    slot_tags = np.asarray(arrays["tags"], np.int32)
+    slot_nums = np.asarray(arrays["nums"], np.float32)
+    rows = int(store.new_to_old.shape[0])          # pages * capacity
+    want_tags = (rows, len(schema.tags))
+    want_nums = (rows, len(schema.numerics))
+    if slot_tags.shape != want_tags or slot_nums.shape != want_nums:
+        raise IndexFormatError(
+            f"{path}: metadata shapes {slot_tags.shape}/{slot_nums.shape} "
+            f"disagree with the manifest schema — expected "
+            f"{want_tags}/{want_nums}"
+        )
+    host_tags, host_nums = layout_mod.unreassign_metadata(
+        slot_tags, slot_nums, store
+    )
+    return (
+        schema,
+        vocab,
+        MetaArrays(tags=slot_tags, nums=slot_nums).to(dev),
+        MetaArrays(tags=host_tags, nums=host_nums),
+    )
+
+
 def config_to_json(cfg: PageANNConfig) -> dict:
     doc = dataclasses.asdict(cfg)
     doc["memory_mode"] = cfg.memory_mode.value
@@ -110,7 +195,11 @@ def save_pageann(index, directory: str) -> None:
     os.makedirs(directory, exist_ok=True)
     store, tier, lsh = index.store, index.tier, index.lsh
 
-    recs = np.ascontiguousarray(store.recs.cpu().numpy(), np.float32)
+    # a streamed store's device ``recs`` holds only the resident pages; the
+    # host memmap is the full page file
+    recs = (np.asarray(store.recs_host, np.float32)
+            if store.recs_host is not None
+            else np.ascontiguousarray(store.recs.cpu().numpy(), np.float32))
     recs.tofile(os.path.join(directory, PAGES_BIN))
 
     def host(t):
@@ -141,6 +230,14 @@ def save_pageann(index, directory: str) -> None:
         lsh_sample_codes=host(lsh.sample_codes).view(np.uint32),
         lsh_sample_pq=host(lsh.sample_pq),
     )
+    if index.schema is not None:
+        # page-slot-aligned columns: the row order of pages.bin, so a
+        # page's metadata is one contiguous slice
+        np.savez(
+            os.path.join(directory, META_NPZ),
+            tags=host(index.meta.tags).astype(np.int32),
+            nums=host(index.meta.nums).astype(np.float32),
+        )
 
     pages, rows, lanes = recs.shape
     write_manifest(
@@ -156,11 +253,15 @@ def save_pageann(index, directory: str) -> None:
             dim=store.dim,
             stats=dataclasses.asdict(index.stats),
             hot_pages=host(tier.cached_pages).tolist(),
+            # how this index was loaded; a fresh load picks its own budget
             residency=dict(
-                memory_budget=None, resident_pages=pages, total_pages=pages,
+                memory_budget=(index.memory_budget.to_json()
+                               if index.memory_budget is not None else None),
+                resident_pages=store.resident_pages,
+                total_pages=pages,
             ),
             tuned=dict(default=None, points=[]),
-            schema=None,
+            schema=_schema_to_json(index),
         ),
     )
 
@@ -171,19 +272,27 @@ def index_from_arrays(
     device: str | torch.device = "cuda",
     *,
     stats=None,
+    memory_budget=None,
 ):
     """Assemble a :class:`PageANNIndex` on ``device`` from host arrays.
 
     ``arrays`` holds the ``arrays.npz`` sidecars under their file names
-    plus ``recs``, the (P, rows, 128) f32 page records. LSH codes may come
-    as uint32 (as saved) or int32; either way the device holds the same
-    bits as int32. ``stats`` defaults to one derived from the arrays.
+    plus ``recs``, the (P, rows, 128) f32 page records (an array or the
+    ``pages.bin`` memmap). LSH codes may come as uint32 (as saved) or
+    int32; either way the device holds the same bits as int32. ``stats``
+    defaults to one derived from the arrays.
+
+    ``memory_budget`` (``MemoryBudget.parse`` accepts bytes, a fraction or
+    a string) pins the hottest pages that fit on the device, by
+    ``page_order`` and in sorted id order, and leaves the rest to a
+    ``PageFetcher`` over ``recs``. A budget that covers every page loads
+    fully resident, with no fetcher.
     """
     from repro_torch.core.index import BuildStats, PageANNIndex
 
     dev = resolve_device(device)
-    recs = np.asarray(arrays["recs"], np.float32)
-    num_pages = recs.shape[0]
+    recs = arrays["recs"]
+    num_pages, rows, lanes = recs.shape
     new_to_old = np.asarray(arrays["new_to_old"])
     capacity = new_to_old.shape[0] // num_pages
     dim = cfg.dim
@@ -198,17 +307,37 @@ def index_from_arrays(
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
 
+    page_order = _page_order_of(arrays, num_pages)
+    n_res = num_pages
+    if memory_budget is not None:
+        memory_budget = MemoryBudget.parse(memory_budget)
+        n_res = memory_budget.resolve_pages(num_pages, rows * lanes * 4)
+    fetcher = resident_map = recs_host = None
+    if n_res >= num_pages:
+        recs_dev = put(np.array(recs, np.float32))     # one read of the file
+    else:
+        # sorted ids keep the resident region in page order
+        resident_ids = np.sort(page_order[:n_res])
+        rmap = np.full(num_pages, stream_mod.PAD, np.int32)
+        rmap[resident_ids] = np.arange(n_res, dtype=np.int32)
+        resident_map = put(rmap)
+        recs_dev = put(np.asarray(recs[resident_ids], np.float32))
+        recs_host = recs
+        fetcher = stream_mod.PageFetcher(recs)
+
     store = layout_mod.PageStore(
         vecs=layout_mod.unpack_member_vectors(recs, capacity, dim),
         member_count=put(arrays["member_count"]),
         nbr_ids=put(nbr_ids),
         nbr_codes=nbr_codes,
         nbr_count=put(arrays["nbr_count"]),
-        recs=put(recs),
+        recs=recs_dev,
         capacity=capacity,
         dim=dim,
         new_to_old=new_to_old,
         old_to_new=np.asarray(arrays["old_to_new"]),
+        resident_map=resident_map,
+        recs_host=recs_host,
     )
     tier = layout_mod.MemoryTier(
         mem_codes=put(arrays["mem_codes"]),
@@ -236,9 +365,8 @@ def index_from_arrays(
             memory_bytes=tier.memory_bytes + lsh.memory_bytes,
             disk_bytes=num_pages * tile,
         )
-    stats.resident_pages = num_pages
-    stats.resident_bytes = num_pages * store.padded_tile_bytes()
-    page_order = arrays.get("page_order")
+    stats.resident_pages = store.resident_pages
+    stats.resident_bytes = store.resident_bytes
     return PageANNIndex(
         cfg=cfg,
         store=store,
@@ -247,36 +375,40 @@ def index_from_arrays(
         data=search_mod.make_search_data(store, tier, lsh),
         stats=stats,
         device=dev,
-        page_order=None if page_order is None else np.asarray(page_order, np.int32),
+        page_order=page_order,
+        fetcher=fetcher,
+        memory_budget=memory_budget,
     )
+
+
+def _page_order_of(arrays: dict, num_pages: int) -> np.ndarray:
+    """Full residency priority, hottest page first: the persisted
+    ``page_order`` sidecar (warm_cache access counts) when there is one,
+    else the cached (hot) pages followed by the rest in id order."""
+    if "page_order" in arrays:
+        return np.asarray(arrays["page_order"], np.int32)
+    hot = np.asarray(arrays["cached_pages"], np.int32)
+    rest = np.setdiff1d(np.arange(num_pages, dtype=np.int32), hot)
+    return np.concatenate([hot, rest])[:num_pages]
 
 
 def load_pageann(directory: str, *, device: str | torch.device = "cuda",
                  memory_budget=None):
-    """Reload a saved PageANN index onto ``device``, fully resident.
+    """Reload a saved PageANN index onto ``device``.
 
     Reads artifacts written by this package or by ``repro`` (the JAX
     reference): the port searches a loaded JAX-built index exactly as the
-    reference does. The parts of the format this slice has not ported yet
-    raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+    reference does. ``pages.bin`` is opened as a memmap. ``memory_budget``
+    (see :func:`index_from_arrays`) keeps only the hottest pages on the
+    device and streams the rest per hop; results equal a fully resident
+    load bit for bit. An autotuned default in the artifact raises
+    ``NotImplementedError`` (ROADMAP queue A, item 5).
     """
     from repro_torch.core.index import BuildStats
 
-    if memory_budget is not None:
-        raise NotImplementedError(
-            "memory-budgeted (streamed) loads are not ported yet: ROADMAP "
-            "queue A, item 7"
-        )
     doc = read_manifest(directory)
     if doc["kind"] != "pageann":
         raise ValueError(f"{directory}: kind={doc['kind']!r}, not a PageANN index")
-    if doc.get("schema") is not None or os.path.isfile(
-        os.path.join(directory, META_NPZ)
-    ):
-        raise NotImplementedError(
-            f"{directory}: the index carries metadata for filtered search, "
-            "which is not ported yet: ROADMAP queue A, item 6"
-        )
     if (doc.get("tuned") or {}).get("default") is not None:
         raise NotImplementedError(
             f"{directory}: the index carries an autotuned default, which is "
@@ -285,8 +417,9 @@ def load_pageann(directory: str, *, device: str | torch.device = "cuda",
     cfg = config_from_json(doc["config"])
 
     pages_path = _check_pages_bin(directory, doc)
-    recs = np.fromfile(pages_path, dtype=np.float32).reshape(
-        doc["pages"], doc["record_rows"], doc["record_lanes"]
+    recs = np.memmap(
+        pages_path, dtype=np.float32, mode="r",
+        shape=(doc["pages"], doc["record_rows"], doc["record_lanes"]),
     )
     with np.load(os.path.join(directory, ARRAYS_NPZ)) as z:
         arrays = {name: z[name] for name in z.files}
@@ -298,4 +431,8 @@ def load_pageann(directory: str, *, device: str | torch.device = "cuda",
     )
     stats = BuildStats(**doc["stats"])
     stats.disk_bytes = os.path.getsize(pages_path)
-    return index_from_arrays(cfg, arrays, device, stats=stats)
+    index = index_from_arrays(cfg, arrays, device, stats=stats,
+                              memory_budget=memory_budget)
+    (index.schema, index.vocab, index.meta,
+     index.meta_host) = _load_meta(directory, doc, index.store, index.device)
+    return index

@@ -1,14 +1,15 @@
 """PageANN graph search — Algorithm 2, as a batched PyTorch loop.
 
-Port of ``repro.core.search`` (fully resident, no filter, no adaptive
-search). The reference ``vmap``s a ``lax.while_loop`` over queries; here
+Port of ``repro.core.search``: fully resident and memory-budgeted
+(streamed) search, with or without a metadata filter (adaptive search is
+not ported yet). The reference ``vmap``s a ``lax.while_loop`` over queries; here
 every tensor of the per-query :class:`BeamState` carries a leading query
 axis and one Python loop runs the hops for the whole batch. Each hop
 applies the same three transitions:
 
   ``select_batch``      pick up to b closest unvisited candidates on fresh
-                        pages (one stable sort of the beam plus a
-                        first-occurrence-per-page mask),
+                        pages (a stable sort of the beam by distance, then
+                        one by page for the first occurrence of each),
   ``score_page_batch``  read those page records once through the
                         ``page_scan`` kernel (exact member L2 + on-page
                         neighbour ADC) and re-score neighbours with the
@@ -20,6 +21,15 @@ A lane whose loop condition is false is frozen, as under ``vmap``: the hop
 runs only on the active lanes and their new state is written back, so a
 finished query's state never changes. The loop ends when no lane is active,
 which costs one host sync per hop.
+
+Streamed search (``stream_search``) keeps only part of the page records on
+the device. Each hop looks its pages up in ``resident_map``, reads the
+missing records on the host through a ``core.stream.PageFetcher`` between
+``select_batch`` and the scan, copies them to the device through a reused
+pinned buffer, and scores them with ``page_scan_recs``: the same per-record
+kernel code as ``page_scan``, so every result equals the resident search
+bit for bit. Filtered search pushes the predicate into the scan as a member
+mask; neighbour estimates stay unmasked so the graph stays traversable.
 
 Ties break as in the reference: ``lax.top_k`` and ``lax.sort(is_stable=
 True)`` both favour the lower index, so every selection here is a stable
@@ -34,6 +44,7 @@ import torch
 
 from repro_torch.core import pq as pq_mod
 from repro_torch.core.config import MemoryMode, SearchParams
+from repro_torch.core.filter import CompiledFilter, MetaArrays, filter_mask
 from repro_torch.core.layout import MemoryTier, PageStore
 from repro_torch.core.lsh import LSHIndex, hash_codes
 from repro_torch.kernels import ops
@@ -45,10 +56,14 @@ INF = float("inf")
 class SearchData(NamedTuple):
     """All device tensors the search reads."""
 
-    page_recs: torch.Tensor     # (P, rows, 128) f32 packed page records
+    # under a memory budget page_recs holds only the R resident records and
+    # resident_map routes each page id to its row there (-1: streamed);
+    # fully resident, R == P and resident_map == arange(P)
+    page_recs: torch.Tensor     # (R, rows, 128) f32 packed page records
     member_count: torch.Tensor  # (P,)
     nbr_ids: torch.Tensor       # (P, Rp)
     nbr_count: torch.Tensor     # (P,)
+    resident_map: torch.Tensor  # (P,) int32: row of page_recs, or -1
     mem_codes: torch.Tensor     # (N_pad, M_mem) uint8
     mem_mask: torch.Tensor      # (N_pad,) bool
     mem_codebooks: torch.Tensor
@@ -61,11 +76,17 @@ class SearchData(NamedTuple):
 
 
 def make_search_data(store: PageStore, tier: MemoryTier, lsh: LSHIndex) -> SearchData:
+    resident_map = store.resident_map
+    if resident_map is None:
+        resident_map = torch.arange(
+            store.recs.shape[0], dtype=torch.int32, device=store.recs.device
+        )
     return SearchData(
         page_recs=store.recs,
         member_count=store.member_count,
         nbr_ids=store.nbr_ids,
         nbr_count=store.nbr_count,
+        resident_map=resident_map,
         mem_codes=tier.mem_codes,
         mem_mask=tier.mem_mask,
         mem_codebooks=tier.mem_codebooks,
@@ -180,7 +201,7 @@ def select_batch(
     ``mode="drop"`` write to a sentinel column that is cut off afterwards.
     """
     cand_ids = state.cand_ids
-    nq, beam = cand_ids.shape
+    nq = cand_ids.shape[0]
     num_pages = state.page_vis.shape[1]
     b = io_batch
     dev = cand_ids.device
@@ -195,14 +216,16 @@ def select_batch(
     sd, sslot = torch.sort(masked, dim=1, stable=True)
     spages = cpages.gather(1, sslot)
     finite = torch.isfinite(sd)
-    pos = torch.arange(beam, device=dev)
-    # first finite occurrence of each page in (distance, slot) order
-    earlier_same = (
-        (spages[:, :, None] == spages[:, None, :])
-        & (pos[None, :] < pos[:, None])[None]   # strictly earlier sorted pos
-        & finite[:, None, :]
-    ).any(2)
-    first = finite & ~earlier_same
+    # first finite occurrence of each page in (distance, slot) order: a
+    # stable sort by page keeps each page's sorted positions ascending, so
+    # the head of a page's group is its first occurrence; the finite
+    # entries are a prefix of the sorted beam, so the head is finite
+    # whenever any entry of the page is. O(L log L), where a pairwise
+    # compare of the beam would take O(L^2) memory.
+    gpages, gpos = torch.sort(spages, dim=1, stable=True)
+    head = torch.ones_like(finite)
+    head[:, 1:] = gpages[:, 1:] != gpages[:, :-1]
+    first = finite & torch.zeros_like(head).scatter_(1, gpos, head)
     rank = torch.cumsum(first, 1) - first.long()   # fresh pages before
     scheduled = first & (rank < b)
     n_sched = scheduled.sum(1)
@@ -220,14 +243,62 @@ def select_batch(
     # expanded flags: the b scheduled picks, plus co-page candidates of any
     # page scheduled before the final pick (the serial loop's stale marking
     # ran once more after each pick except the last)
-    early_pages = torch.where(scheduled & (rank < b - 1), spages, -1)   # (Q, L)
-    early = (cpages[:, :, None] == early_pages[:, None, :]).any(2)
+    # (the pages of ranks < b - 1 are the first b - 1 columns of the batch)
+    early = (cpages[:, :, None] == batch[:, None, : b - 1]).any(2)   # (Q, L)
     picked = torch.zeros_like(scheduled).scatter_(1, sslot, scheduled)
     cand_vis = state.cand_vis | stale | picked
     cand_vis = cand_vis | ((cand_ids != PAD) & early)
     # the serial argmin marked slot 0 on every exhausted pick (all-INF mask)
     cand_vis[:, 0] |= n_sched < b
     return state._replace(cand_vis=cand_vis, page_vis=page_vis), batch
+
+
+def page_member_mask(
+    meta: MetaArrays, cfilter: CompiledFilter, batch: torch.Tensor,
+    *, capacity: int,
+) -> torch.Tensor:
+    """Evaluate a compiled filter over one hop's page batch.
+
+    ``meta`` holds page-slot-aligned metadata columns ((P*cap, T) tags /
+    (P*cap, N) numerics, the ``new_to_old`` layout of the page records), so
+    a page's rows are one contiguous slice: gather the (Q, b) batch and
+    evaluate the predicate to a (Q, b, cap) f32 mask (1 = passes). Pad
+    slots carry the missing sentinels (-1 / NaN) and never pass.
+    """
+    # explicit page count: a zero-width column block (a schema with no tag
+    # or no numeric fields) cannot infer it from a -1 reshape
+    pages = meta.tags.shape[0] // capacity
+    tags = meta.tags.reshape(pages, capacity, meta.tags.shape[-1])[batch]
+    nums = meta.nums.reshape(pages, capacity, meta.nums.shape[-1])[batch]
+    return filter_mask(cfilter, tags, nums).to(torch.float32)
+
+
+class PinnedStage:
+    """Moves a hop's missing page records from the host to the device.
+
+    Calls the fetcher with the missing page ids as one 1-D array (so its
+    counters see each request once, in row-major order), has it write the
+    records straight into a host buffer that is pinned on a CUDA device and
+    reused from hop to hop, and copies them to the device without blocking.
+    Reuse is safe: the next hop's ids come back to the host through a copy
+    on the same stream, which waits for this copy to finish.
+    """
+
+    def __init__(self, fetcher):
+        self.fetcher = fetcher
+        self._buf: torch.Tensor | None = None
+
+    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids: (n,) page ids on the device -> (n, rows, 128) f32 there."""
+        dev = ids.device
+        ids_np = ids.cpu().numpy()
+        rows, lanes = self.fetcher.record_shape
+        if self._buf is None or self._buf.shape[0] < ids_np.size:
+            size = max(ids_np.size, 2 * (0 if self._buf is None else self._buf.shape[0]))
+            self._buf = torch.empty((size, rows, lanes), dtype=torch.float32,
+                                    pin_memory=dev.type == "cuda")
+        self.fetcher(ids_np, out=self._buf.numpy())
+        return self._buf[: ids_np.size].to(dev, non_blocking=True)
 
 
 def score_page_batch(
@@ -240,6 +311,9 @@ def score_page_batch(
     *,
     capacity: int,
     mode: str,
+    fetch: PinnedStage | None = None,
+    meta: MetaArrays | None = None,
+    cfilter: CompiledFilter | None = None,
     impl: str | None = None,
 ):
     """Batched page-record read (Fig. 6 steps 2-4, THE I/O) -> both score
@@ -249,6 +323,18 @@ def score_page_batch(
     L2 distances and on-page neighbour ADC estimates. MEM_ALL skips the
     on-page ADC; HYBRID/MEM_ALL re-score neighbours with the finer
     in-memory codes through ``pq_adc``.
+
+    ``fetch`` is the streamed tier (``stream_search``): ``data.page_recs``
+    then holds only the resident records. Resident lanes are scored by
+    ``page_scan`` at their rows in it; the others are fetched from the host
+    into a zeroed (Q, b, rows, 128) staging tensor and scored by
+    ``page_scan_recs``, the same per-record kernel code; the two merge per
+    lane, so every score equals the resident search's bit for bit.
+
+    With a filter (``meta`` + ``cfilter``), the predicate is evaluated over
+    the batch's metadata and pushed into the scan as a member mask:
+    filtered-out members score ``+inf``, so the result top-k holds only
+    passing vectors. Neighbour estimates stay unmasked.
 
     Returns (member_ids, member_dists) as (Q, b*cap), (neighbor_ids,
     estimated_dists) as (Q, b*Rp) INF-masked, plus this hop's disk-I/O and
@@ -261,12 +347,29 @@ def score_page_batch(
     safe = batch.clamp(min=0).long()
     fetched = batch >= 0
 
-    compute_adc = mode != MemoryMode.MEM_ALL.value
-    ex, est_disk = ops.page_scan(
-        data.page_recs, safe, q, disk_lut,
-        capacity=cap, dim=q.shape[1], rp=rp, compute_adc=compute_adc,
-        impl=impl,
+    member_mask = (
+        page_member_mask(meta, cfilter, safe, capacity=cap)
+        if meta is not None and cfilter is not None
+        else None
     )
+    compute_adc = mode != MemoryMode.MEM_ALL.value
+    kw = dict(capacity=cap, dim=q.shape[1], rp=rp, compute_adc=compute_adc,
+              member_mask=member_mask, impl=impl)
+    if fetch is None:
+        ex, est_disk = ops.page_scan(data.page_recs, safe, q, disk_lut, **kw)
+    else:
+        slot = data.resident_map[safe]                       # (Q, b)
+        resident = slot >= 0
+        miss = fetched & ~resident
+        staged = torch.zeros((nq, b, *data.page_recs.shape[1:]),
+                             dtype=torch.float32, device=dev)
+        staged[miss] = fetch(safe[miss])     # row-major: the fetch order
+        ex_r, est_r = ops.page_scan(
+            data.page_recs, torch.where(resident, slot, 0), q, disk_lut, **kw)
+        ex_s, est_s = ops.page_scan_recs(staged, q, disk_lut, **kw)
+        lane = resident[:, :, None]
+        ex = torch.where(lane, ex_r, ex_s)
+        est_disk = None if est_r is None else torch.where(lane, est_r, est_s)
     slots = torch.arange(cap, device=dev)
     ex = torch.where(slots < data.member_count[safe][:, :, None], ex, INF)
     ex = torch.where(fetched[:, :, None], ex, INF)
@@ -366,6 +469,9 @@ def _search_batch(
     max_hops: int,
     entries: int,
     mode: str,
+    fetch: PinnedStage | None = None,
+    meta: MetaArrays | None = None,
+    cfilter: CompiledFilter | None = None,
     impl: str | None = None,
 ) -> SearchResult:
     disk_lut = pq_mod.pq_lut(queries, data.disk_codebooks)   # (Q, M_disk, K)
@@ -393,7 +499,7 @@ def _search_batch(
         sub, batch = select_batch(sub, capacity=capacity, io_batch=io_batch)
         sub = merge(sub, *score_page_batch(
             q, data, batch, sub, dl, ml, capacity=capacity, mode=mode,
-            impl=impl,
+            fetch=fetch, meta=meta, cfilter=cfilter, impl=impl,
         ))
         if n == nq:
             state = sub
@@ -414,14 +520,21 @@ def batch_search(
     *,
     capacity: int,
     mode: str,
+    meta: MetaArrays | None = None,
+    cfilter: CompiledFilter | None = None,
     impl: str | None = None,
+    fetch: PinnedStage | None = None,
 ) -> SearchResult:
     """Search a batch of queries. queries: (Q, d) on the data's device.
 
     ``params`` carries the per-call runtime knobs (beam L, io batch b, max
     hops, LSH top-T, k); ``capacity`` and ``mode`` are build-time
-    properties of the index. ``impl="plain"`` runs every kernel's plain
-    version (tests and the chip smoke compare the two).
+    properties of the index. Filtered search passes ``meta`` (the index's
+    page-slot-aligned metadata on the device) and ``cfilter`` (the compiled
+    predicate); with both ``None`` the search is the unfiltered one.
+    ``impl="plain"`` runs every kernel's plain version (tests and the chip
+    smoke compare the two). ``fetch`` is the streamed tier's hook; callers
+    go through ``stream_search``.
     """
     problems = params.pageann_violations()
     if problems:
@@ -442,5 +555,41 @@ def batch_search(
         max_hops=params.max_hops,
         entries=params.lsh_entries,
         mode=mode,
+        fetch=fetch,
+        meta=meta,
+        cfilter=cfilter,
         impl=impl,
+    )
+
+
+def stream_search(
+    queries: torch.Tensor,
+    data: SearchData,
+    params: SearchParams,
+    *,
+    capacity: int,
+    mode: str,
+    fetcher,
+    meta: MetaArrays | None = None,
+    cfilter: CompiledFilter | None = None,
+    impl: str | None = None,
+    stage: PinnedStage | None = None,
+) -> SearchResult:
+    """``batch_search`` over a budgeted index: ``data.page_recs`` holds
+    only the resident pages, and each hop's misses are read from the host
+    memmap by ``fetcher`` (a ``core.stream.PageFetcher``), once per hop for
+    the whole batch. ``stage`` is the pinned buffer to move them through
+    (the index keeps one across calls; a new one by default).
+
+    Results equal the fully resident ``batch_search`` on the same artifact
+    bit for bit. The fetcher's counters count only active lanes: a
+    finished query is frozen and fetches nothing, where the reference's
+    vmapped loop keeps fetching for it, so they may be lower than the
+    reference's for the same queries.
+    """
+    if stage is None:
+        stage = PinnedStage(fetcher)
+    return batch_search(
+        queries, data, params, capacity=capacity, mode=mode, meta=meta,
+        cfilter=cfilter, impl=impl, fetch=stage,
     )

@@ -1,0 +1,162 @@
+"""Host-side streaming page tier: the memmap as the source of truth.
+
+Port of ``repro.core.stream``. A :class:`PageFetcher` wraps the
+``np.memmap`` of ``pages.bin`` and serves the per-hop record requests of a
+memory-budgeted search (``core.search.stream_search``). The search loop
+already syncs with the host once per hop, so the fetch is plain host code
+between the hop's page selection and its scan (no callback out of a
+compiled program, as the reference needs):
+
+  * requested page ids arrive with arbitrary leading batch axes,
+    ``PAD``/-1 marking slots the device does not need — those rows come
+    back zeroed without touching the file;
+  * a bounded LRU **staging cache** of recently fetched records absorbs
+    the re-reads a beam search naturally produces (the same hub pages are
+    requested hop after hop, query after query), so a miss costs one page
+    read, a re-request costs a memcpy;
+  * ``pages_fetched`` / ``fetch_hits`` / ``fetch_wall_s`` counters make
+    budget pressure observable end to end (``PageANNIndex.fetch_stats``).
+
+The fetcher is deliberately dumb about *placement*: which pages are
+resident on the device is decided once at load time
+(``persist.load_pageann``); everything the device does not hold is this
+module's problem, every hop.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+
+import numpy as np
+
+PAD = -1
+
+# default staging-cache size (pages). Big enough to absorb the hub-page
+# re-reads of a beam search over a small index, small enough that the
+# host-side footprint stays a fraction of the resident region for any
+# realistic page count.
+DEFAULT_STAGE_PAGES = 256
+
+
+class PageFetcher:
+    """Thread-safe streaming reader over a memmapped page-record file.
+
+    ``recs`` is the (P, rows, lanes) f32 source of truth (typically an
+    ``np.memmap`` of ``pages.bin``; any ndarray works). Calling the
+    fetcher with an int array of page ids returns the packed records as
+    f32, shape ``ids.shape + (rows, lanes)``; ids < 0 yield zero records.
+
+    ``out``, when given, is a float32 array of at least ``ids.size``
+    records that the records are written into (the search hands it a
+    pinned host buffer, so the copy to the device needs no second copy on
+    the host); its first ``ids.size`` records are returned, reshaped.
+    """
+
+    def __init__(
+        self,
+        recs: np.ndarray,
+        *,
+        stage_pages: int = DEFAULT_STAGE_PAGES,
+    ):
+        if recs.ndim != 3:
+            raise ValueError(
+                f"PageFetcher needs (P, rows, lanes) records, got {recs.shape}"
+            )
+        if stage_pages < 1:
+            raise ValueError("stage_pages must be >= 1")
+        self._recs = recs
+        self._stage_pages = int(stage_pages)
+        self._lock = threading.Lock()
+        # page id -> (rows, lanes) f32 copy, most-recently-used last
+        self._stage: collections.OrderedDict[int, np.ndarray] = (
+            collections.OrderedDict()
+        )
+        self._pages_fetched = 0
+        self._fetch_hits = 0
+        self._fetch_wall_s = 0.0
+        # trailing window of per-callback wall seconds — the exposition
+        # layer's fetch-latency histogram feed (bounded, like the engine's
+        # latency window)
+        self._wall_window: collections.deque = collections.deque(maxlen=4096)
+        # optional span tracer (duck-typed: ``enabled``, ``now()``,
+        # ``add(...)``); a caller may attach one so per-hop host fetches
+        # show up as spans. The fetcher stamps spans with the tracer's own
+        # clock.
+        self.tracer = None
+
+    @property
+    def num_pages(self) -> int:
+        return int(self._recs.shape[0])
+
+    @property
+    def record_shape(self) -> tuple[int, int]:
+        return int(self._recs.shape[1]), int(self._recs.shape[2])
+
+    def __call__(self, ids, out: np.ndarray | None = None) -> np.ndarray:
+        t0 = time.perf_counter()
+        ids = np.asarray(ids)
+        flat = ids.reshape(-1).astype(np.int64)
+        rows, lanes = self.record_shape
+        if out is None:
+            out = np.zeros((flat.size, rows, lanes), np.float32)
+        else:
+            out = out.reshape(-1, rows, lanes)[: flat.size]
+            out[flat < 0] = 0.0
+        with self._lock:
+            fetched0 = self._pages_fetched
+            for j, pid in enumerate(flat):
+                if pid < 0:
+                    continue
+                pid = int(pid)
+                rec = self._stage.get(pid)
+                if rec is not None:
+                    self._stage.move_to_end(pid)
+                    self._fetch_hits += 1
+                else:
+                    # THE disk read: one page record off the memmap
+                    rec = np.asarray(self._recs[pid], np.float32)
+                    self._pages_fetched += 1
+                    self._stage[pid] = rec
+                    if len(self._stage) > self._stage_pages:
+                        self._stage.popitem(last=False)     # evict LRU
+                out[j] = rec
+            wall = time.perf_counter() - t0
+            self._fetch_wall_s += wall
+            self._wall_window.append(wall)
+            misses = self._pages_fetched - fetched0
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            t1 = tr.now()
+            tr.add("page_fetch", t1 - wall, t1, cat="host-fetch",
+                   track="host-fetch",
+                   args={"requested": int((flat >= 0).sum()),
+                         "misses": misses})
+        return out.reshape(ids.shape + (rows, lanes))
+
+    # ------------------------------------------------------------- counters
+    def fetch_stats(self) -> dict:
+        """Cumulative counters: pages read off disk, staging-cache hits,
+        and wall seconds spent inside the host callback — plus
+        ``wall_window``, the bounded trailing window of per-callback wall
+        seconds feeding the exposition layer's fetch-latency histogram."""
+        with self._lock:
+            return dict(
+                pages_fetched=self._pages_fetched,
+                fetch_hits=self._fetch_hits,
+                fetch_wall_s=self._fetch_wall_s,
+                wall_window=tuple(self._wall_window),
+            )
+
+    def reset_stats(self) -> None:
+        with self._lock:
+            self._pages_fetched = 0
+            self._fetch_hits = 0
+            self._fetch_wall_s = 0.0
+            self._wall_window.clear()
+
+    def __repr__(self) -> str:
+        return (
+            f"PageFetcher(pages={self.num_pages}, "
+            f"stage_pages={self._stage_pages})"
+        )

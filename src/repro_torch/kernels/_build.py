@@ -34,14 +34,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
-    "pageann_page_scan": [_P] * 6 + [_I] * 11 + [_P],
+    "pageann_page_scan": [_P] * 7 + [_I] * 12 + [_P],
     "pageann_pq_adc": [_P] * 3 + [_I] * 4 + [_P],
     "pageann_hamming": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 # launches of each kernel since the last reset: every wrapper adds one where
 # its launch succeeded, nowhere else
-LAUNCHES = {"page_scan": 0, "page_scan_members": 0, "pq_adc": 0, "hamming": 0}
+LAUNCHES = {
+    name: 0 for name in (
+        "page_scan", "page_scan_members", "page_scan_masked",
+        "page_scan_members_masked", "page_scan_recs", "page_scan_recs_members",
+        "page_scan_recs_masked", "page_scan_recs_members_masked",
+        "pq_adc", "hamming",
+    )
+}
 
 
 def reset_launch_counts() -> None:

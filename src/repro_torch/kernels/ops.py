@@ -45,17 +45,46 @@ def pq_adc(codes: torch.Tensor, lut: torch.Tensor, *,
 
 
 def page_scan(recs, page_ids, q, lut, *, capacity: int, dim: int, rp: int,
-              compute_adc: bool = True, impl: str | None = None):
+              compute_adc: bool = True, member_mask=None,
+              impl: str | None = None):
     """Fused hop scan. recs (P, rows, 128) f32, page_ids (Q, b) >= 0,
-    q (Q, d) f32, lut (Q, M, K) f32 -> ((Q, b, cap) member L2,
-    (Q, b, rp) neighbour ADC or None when ``compute_adc`` is false)."""
+    q (Q, d) f32, lut (Q, M, K) f32, member_mask (Q, b, cap) f32 or None
+    -> ((Q, b, cap) member L2, (Q, b, rp) neighbour ADC or None when
+    ``compute_adc`` is false). Members whose mask is <= 0 score ``+inf``."""
     if _use_kernel(impl, recs):
         return page_scan_k.page_scan(
             recs, page_ids.to(torch.int32).contiguous(), q.contiguous(),
             lut.contiguous() if compute_adc else None,
             capacity=capacity, dim=dim, rp=rp, compute_adc=compute_adc,
+            member_mask=_mask_arg(member_mask),
         )
     return ref.page_scan_ref(
         recs, page_ids, q, lut,
         capacity=capacity, dim=dim, rp=rp, compute_adc=compute_adc,
+        member_mask=member_mask,
     )
+
+
+def page_scan_recs(recs_b, q, lut, *, capacity: int, dim: int, rp: int,
+                   compute_adc: bool = True, member_mask=None,
+                   impl: str | None = None):
+    """``page_scan`` on an already-staged batch: recs_b (Q, b, rows, 128)
+    f32 (the streamed tier's fetched records); same outputs and mask."""
+    if _use_kernel(impl, recs_b):
+        return page_scan_k.page_scan_recs(
+            recs_b.contiguous(), q.contiguous(),
+            lut.contiguous() if compute_adc else None,
+            capacity=capacity, dim=dim, rp=rp, compute_adc=compute_adc,
+            member_mask=_mask_arg(member_mask),
+        )
+    return ref.page_scan_recs_ref(
+        recs_b, q, lut,
+        capacity=capacity, dim=dim, rp=rp, compute_adc=compute_adc,
+        member_mask=member_mask,
+    )
+
+
+def _mask_arg(member_mask):
+    if member_mask is None:
+        return None
+    return member_mask.to(torch.float32).contiguous()

@@ -1,12 +1,16 @@
-"""CUDA wrapper: the fused page scan of one search hop.
+"""CUDA wrappers: the fused page scan of one search hop.
 
-Replaces ``src/repro/kernels/page_scan.py`` (``page_scan``, the unmasked
-kernels ``_page_scan_kernel`` and ``_page_scan_members_kernel``). The kernel
-is ``csrc/page_scan.cu``: bound by bytes on the H100 (each record row is
-read once for ~3 flops per float). One block per (query, page) loads its own
-page id, copies the member rows to shared memory with 16-byte loads, scores
-one member per warp, and gathers neighbour ADC sums from the query's table
-in shared memory instead of the TPU's one-hot matrix-unit contraction.
+Replaces ``src/repro/kernels/page_scan.py``: ``page_scan`` (the kernels
+``_page_scan_kernel``, ``_page_scan_members_kernel`` and their masked
+twins) and ``page_scan_recs`` (the four ``_page_scan_recs_*`` kernels). The
+kernel is ``csrc/page_scan.cu``: bound by bytes on the H100 (each record
+row is read once for ~3 flops per float). One block per (query, page) loads
+its own page id (or takes its record from a staged batch), copies the
+member rows to shared memory with 16-byte loads, scores one member per
+warp, and gathers neighbour ADC sums from the query's table in shared
+memory instead of the TPU's one-hot matrix-unit contraction. Every variant
+runs the same per-record device function, so a staged record scores bit
+for bit like the same record read by page id.
 """
 from __future__ import annotations
 
@@ -23,44 +27,25 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"page_scan: {msg}")
 
 
-def page_scan(
-    recs: torch.Tensor,
-    page_ids: torch.Tensor,
-    q: torch.Tensor,
-    lut: torch.Tensor | None,
-    *,
-    capacity: int,
-    dim: int,
-    rp: int,
-    compute_adc: bool = True,
-):
-    """recs: (P, rows, 128) f32, page_ids: (Q, b) int32 in [0, P), q:
-    (Q, dim) f32, lut: (Q, M, K) f32 (ignored and may be None without ADC);
-    all contiguous on one CUDA device.
-
-    -> (member_d (Q, b, capacity) f32, nbr_d (Q, b, rp) f32 or None).
-    ``compute_adc=False`` launches the members-only kernel, which never
-    reads the code rows (MEM_ALL records have none).
-    """
+def _launch(recs, page_ids, q, lut, member_mask, *, nq, b, capacity, dim,
+            rp, compute_adc, staged):
+    """Check the inputs the two wrappers share, allocate, launch, count."""
     dev = recs.device
-    _require(recs.is_cuda, "recs must be on a CUDA device")
-    tensors = [recs, page_ids, q] + ([lut] if compute_adc else [])
+    tensors = [recs, q] + ([page_ids] if page_ids is not None else [])
+    tensors += [lut] if compute_adc else []
+    tensors += [member_mask] if member_mask is not None else []
     _require(all(t.device == dev for t in tensors),
              "all inputs must be on one CUDA device")
     _require(all(t.is_contiguous() for t in tensors),
              "inputs must be contiguous")
     _require(recs.dtype == torch.float32 and q.dtype == torch.float32,
              "recs and q must be float32")
-    _require(page_ids.dtype == torch.int32, "page_ids must be int32")
-    _require(recs.dim() == 3 and recs.shape[2] == rl.PAGE_LANES,
-             f"recs must be (P, rows, {rl.PAGE_LANES}), got {tuple(recs.shape)}")
-    _require(page_ids.dim() == 2, "page_ids must be (Q, b)")
-    nq, b = page_ids.shape
-    num_pages, rows, _ = recs.shape
+    _require(recs.data_ptr() % 16 == 0,
+             "recs must be 16-byte aligned (the kernel copies float4s)")
+    rows = recs.shape[-2]
     mrows = rl.member_rows(capacity, dim)
     _require(tuple(q.shape) == (nq, dim),
              f"q must be ({nq}, {dim}), got {tuple(q.shape)}")
-    _require(num_pages > 0, "empty page store")
     _require(0 < rp <= rl.PAGE_LANES, f"rp must be in (0, 128], got {rp}")
     m = k = 0
     if compute_adc:
@@ -69,6 +54,11 @@ def page_scan(
                  f"lut must be ({nq}, M, K) float32, got {tuple(lut.shape)}")
         m, k = lut.shape[1:]
         _require(1 <= k <= 256, f"K must be in [1, 256], got {k}")
+    if member_mask is not None:
+        _require(member_mask.dtype == torch.float32
+                 and tuple(member_mask.shape) == (nq, b, capacity),
+                 f"member_mask must be ({nq}, {b}, {capacity}) float32, got "
+                 f"{tuple(member_mask.shape)} {member_mask.dtype}")
     _require(mrows + m <= rows,
              f"records of {rows} rows cannot hold {mrows} member rows and "
              f"{m} code rows")
@@ -81,14 +71,80 @@ def page_scan(
              if compute_adc else None)
     if nq * b == 0:
         return member_d, nbr_d
+    num_records = recs.shape[0] if not staged else nq * b
     with torch.cuda.device(dev):
         rc = _build.library().pageann_page_scan(
-            recs.data_ptr(), page_ids.data_ptr(), q.data_ptr(),
+            recs.data_ptr(),
+            page_ids.data_ptr() if page_ids is not None else None,
+            q.data_ptr(),
             lut.data_ptr() if compute_adc else None,
+            member_mask.data_ptr() if member_mask is not None else None,
             member_d.data_ptr(),
             nbr_d.data_ptr() if compute_adc else None,
-            nq, b, num_pages, rows, mrows, m, k, capacity, dim, rp,
-            int(compute_adc), torch.cuda.current_stream().cuda_stream,
+            nq, b, num_records, rows, mrows, m, k, capacity, dim, rp,
+            int(compute_adc), int(staged),
+            torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "page_scan" if compute_adc else "page_scan_members")
+    name = "page_scan" + ("_recs" if staged else "")
+    name += "" if compute_adc else "_members"
+    name += "_masked" if member_mask is not None else ""
+    _build.check(rc, name)
     return member_d, nbr_d
+
+
+def page_scan(
+    recs: torch.Tensor,
+    page_ids: torch.Tensor,
+    q: torch.Tensor,
+    lut: torch.Tensor | None,
+    *,
+    capacity: int,
+    dim: int,
+    rp: int,
+    compute_adc: bool = True,
+    member_mask: torch.Tensor | None = None,
+):
+    """recs: (P, rows, 128) f32, page_ids: (Q, b) int32 in [0, P), q:
+    (Q, dim) f32, lut: (Q, M, K) f32 (ignored and may be None without ADC),
+    member_mask: (Q, b, capacity) f32 or None; all contiguous on one CUDA
+    device.
+
+    -> (member_d (Q, b, capacity) f32, nbr_d (Q, b, rp) f32 or None).
+    ``compute_adc=False`` launches the members-only kernel, which never
+    reads the code rows (MEM_ALL records have none). Members whose mask is
+    <= 0 score ``+inf``; the neighbour ADC is never masked.
+    """
+    _require(recs.is_cuda, "recs must be on a CUDA device")
+    _require(recs.dim() == 3 and recs.shape[2] == rl.PAGE_LANES,
+             f"recs must be (P, rows, {rl.PAGE_LANES}), got {tuple(recs.shape)}")
+    _require(page_ids.dtype == torch.int32 and page_ids.dim() == 2,
+             "page_ids must be (Q, b) int32")
+    _require(recs.shape[0] > 0, "empty page store")
+    nq, b = page_ids.shape
+    return _launch(recs, page_ids, q, lut, member_mask, nq=nq, b=b,
+                   capacity=capacity, dim=dim, rp=rp,
+                   compute_adc=compute_adc, staged=False)
+
+
+def page_scan_recs(
+    recs_b: torch.Tensor,
+    q: torch.Tensor,
+    lut: torch.Tensor | None,
+    *,
+    capacity: int,
+    dim: int,
+    rp: int,
+    compute_adc: bool = True,
+    member_mask: torch.Tensor | None = None,
+):
+    """``page_scan`` on an already-staged batch: recs_b (Q, b, rows, 128)
+    f32, record (i, j) scored for query i; the other inputs and the outputs
+    as ``page_scan``'s."""
+    _require(recs_b.is_cuda, "recs must be on a CUDA device")
+    _require(recs_b.dim() == 4 and recs_b.shape[3] == rl.PAGE_LANES,
+             f"recs_b must be (Q, b, rows, {rl.PAGE_LANES}), got "
+             f"{tuple(recs_b.shape)}")
+    nq, b = recs_b.shape[:2]
+    return _launch(recs_b, None, q, lut, member_mask, nq=nq, b=b,
+                   capacity=capacity, dim=dim, rp=rp,
+                   compute_adc=compute_adc, staged=True)

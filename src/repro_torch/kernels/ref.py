@@ -50,15 +50,19 @@ def page_scan_recs_ref(
     dim: int,
     rp: int,
     compute_adc: bool = True,
+    member_mask: torch.Tensor | None = None,
 ):
     """Both score sets of already-gathered page records.
 
     recs_b: (Q, b, rows, 128) f32 packed records (``core.layout.
-    pack_page_records``), q: (Q, d) f32, lut: (Q, M, K) f32.
+    pack_page_records``), q: (Q, d) f32, lut: (Q, M, K) f32, member_mask:
+    (Q, b, capacity) f32 or None.
     -> (member_d (Q, b, capacity) f32, nbr_d (Q, b, rp) f32 or None).
     Member vectors are read back out of the dense packing (``128 // d`` per
     row for d <= 128, ``ceil(d / 128)`` rows each above), neighbour codes
-    from the M subspace-major code rows after the member block.
+    from the M subspace-major code rows after the member block. Members
+    whose mask is <= 0 score ``+inf`` (the filter); the neighbour ADC is
+    never masked.
     """
     nq, b = recs_b.shape[:2]
     rv = record_layout.member_rows(capacity, dim)
@@ -74,6 +78,8 @@ def page_scan_recs_ref(
         )[:, :, :, :dim]
     diff = vecs - q[:, None, None, :]
     member_d = (diff * diff).sum(-1)
+    if member_mask is not None:
+        member_d = torch.where(member_mask > 0, member_d, float("inf"))
     if not compute_adc:
         return member_d, None
     m, k = lut.shape[1:]
@@ -93,13 +99,16 @@ def page_scan_ref(
     dim: int,
     rp: int,
     compute_adc: bool = True,
+    member_mask: torch.Tensor | None = None,
 ):
     """Fused page scan: gather each query's pages, score both sets.
 
     recs: (P, rows, 128) f32, page_ids: (Q, b) int (>= 0), q: (Q, d),
-    lut: (Q, M, K) f32 -> (member_d (Q, b, cap), nbr_d (Q, b, rp) or None).
+    lut: (Q, M, K) f32, member_mask: (Q, b, cap) f32 or None
+    -> (member_d (Q, b, cap), nbr_d (Q, b, rp) or None).
     """
     return page_scan_recs_ref(
         recs[page_ids.to(torch.int64)], q, lut,
         capacity=capacity, dim=dim, rp=rp, compute_adc=compute_adc,
+        member_mask=member_mask,
     )

@@ -34,6 +34,10 @@ from repro_torch.core import vamana as tvamana
 from repro_torch.core.index import PageANNIndex, recall_at_k
 from repro_torch.data import pipeline as tpipeline
 
+# six test workers share the host's cores; the port's small tensors gain
+# nothing from more intra-op threads than one
+torch.set_num_threads(1)
+
 N, D = 1200, 32
 
 

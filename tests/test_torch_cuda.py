@@ -7,7 +7,9 @@ page-scan inputs below are shared with ``test_torch_kernels.py``):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance for the float kernels: rtol 1e-5, atol 1e-4, because the kernel
-sums in another order than the plain version; ``hamming`` is exact.
+sums in another order than the plain version; ``hamming`` is exact, and so
+is a staged record against the same record read by page id (one device
+function scores both).
 """
 import numpy as np
 import pytest
@@ -61,6 +63,84 @@ def test_page_scan_kernel_matches_plain(cuda, p, cap, d, rp, m, b, adc):
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
     if adc:
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["ids", "staged"])
+@pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
+@pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES)
+def test_masked_and_staged_page_scans_match_plain(cuda, p, cap, d, rp, m, b,
+                                                 adc, source):
+    """The masked variants (filtered search) and the staged ones (streamed
+    tier) against their plain versions; a staged record scores exactly
+    like the same record read by page id."""
+    recs, ids, q, lut = (torch.as_tensor(a).to(cuda)
+                         for a in page_inputs(p, cap, d, rp, m, b, nq=64))
+    rng = np.random.default_rng(p + cap)
+    mask = torch.as_tensor(
+        (rng.random((64, b, cap)) < 0.5).astype(np.float32)).to(cuda)
+    mask[0, 0, 0] = float("nan")              # NaN fails the test, as > 0
+    staged = recs[ids.long()].contiguous()
+    kw = dict(capacity=cap, dim=d, rp=rp, compute_adc=adc)
+    for member_mask in (mask, None):
+        if source == "ids":
+            run = lambda impl=None: ops.page_scan(          # noqa: E731
+                recs, ids, q, lut, member_mask=member_mask, impl=impl, **kw)
+        else:
+            run = lambda impl=None: ops.page_scan_recs(     # noqa: E731
+                staged, q, lut, member_mask=member_mask, impl=impl, **kw)
+        name = ("page_scan" + ("_recs" if source == "staged" else "")
+                + ("" if adc else "_members")
+                + ("_masked" if member_mask is not None else ""))
+        before = ops.launch_counts()[name]
+        got = run()
+        assert ops.launch_counts()[name] == before + 1
+        want = run("plain")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+        if adc:
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+        if member_mask is not None:
+            assert torch.isinf(got[0][~(mask > 0)]).all()
+        by_id = ops.page_scan(recs, ids, q, lut, member_mask=member_mask, **kw)
+        assert torch.equal(got[0], by_id[0])
+        if adc:
+            assert torch.equal(got[1], by_id[1])
+
+
+@pytest.mark.cuda
+def test_streamed_and_filtered_search_on_the_card(cuda, tmp_path):
+    """Streamed search equals resident search exactly on the card, with and
+    without a filter, and goes through the staged kernel."""
+    from repro_torch.core import (MemoryMode, MetadataSchema, Num, PageANNConfig,
+                                  PageANNIndex, Tag, load_pageann)
+    from repro_torch.data.pipeline import clustered_vectors, query_vectors
+
+    x = clustered_vectors(600, 32, num_clusters=8, seed=0)
+    q = query_vectors(x, 64, seed=1)
+    rng = np.random.default_rng(7)
+    meta = {"lang": rng.choice(["en", "de", "fr"], 600).tolist(),
+            "score": rng.uniform(0.0, 1.0, 600).tolist()}
+    cfg = PageANNConfig(dim=32, graph_degree=12, build_beam=24, build_rounds=1,
+                        pq_subspaces=8, lsh_sample=256, lsh_entries=8,
+                        beam_width=48, max_hops=48, memory_mode=MemoryMode.HYBRID)
+    index = PageANNIndex.build(
+        x, cfg, schema=MetadataSchema(tags=("lang",), numerics=("score",)),
+        metadata=meta, device=cuda)
+    index.save(str(tmp_path / "idx"))
+    resident = load_pageann(str(tmp_path / "idx"), device=cuda)
+    streamed = load_pageann(str(tmp_path / "idx"), device=cuda, memory_budget=0.25)
+    for expr in (None, Num("score").le(0.1), (Tag("lang") == "en") & Num("score").le(0.5)):
+        ops.reset_launch_counts()
+        got = streamed.search(q, k=10, filter=expr)
+        counts = ops.launch_counts()
+        want = resident.search(q, k=10, filter=expr)
+        for field in got._fields:
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+        suffix = "" if expr is None else "_masked"
+        assert counts["page_scan_recs" + suffix] > 0 and counts["page_scan" + suffix] > 0
+        plain = streamed.search(q, k=10, filter=expr, impl="plain")
+        assert (plain.ids == got.ids).all(1).mean() >= 0.95
+    assert streamed.fetch_stats()["pages_fetched"] > 0
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ from repro.kernels import ref as jref
 from repro.kernels import record_layout as jlayout
 from repro.kernels.hamming import hamming as pallas_hamming
 from repro.kernels.page_scan import page_scan as pallas_page_scan
+from repro.kernels.page_scan import page_scan_recs as pallas_page_scan_recs
 from repro.kernels.pq_adc import pq_adc as pallas_pq_adc
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import hamming as hamming_k
@@ -28,6 +29,10 @@ from repro_torch.kernels import pq_adc as pq_adc_k
 from repro_torch.kernels import record_layout as tlayout
 from repro_torch.kernels import ref as tref
 from test_torch_cuda import PAGE_CASES, page_inputs as _page_inputs
+
+# six test workers share the host's cores; the port's small tensors gain
+# nothing from more intra-op threads than one
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -55,6 +60,48 @@ def test_page_scan_plain_matches_jax_ref_and_pallas(p, cap, d, rp, m, b, adc):
                 np.testing.assert_allclose(nd[i].numpy(), np.asarray(nd_j), **TOL)
             else:
                 assert nd_j is None
+
+
+@pytest.mark.parametrize("variant", ["masked", "recs", "recs_masked"])
+@pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
+@pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES)
+def test_masked_and_staged_plain_match_jax_ref_and_pallas(p, cap, d, rp, m, b,
+                                                          adc, variant):
+    """The filtered (masked) and streamed (staged) page scans: members whose
+    mask is <= 0 score +inf at the same positions, the rest within 1e-5."""
+    recs, ids, q, lut = _page_inputs(p, cap, d, rp, m, b)
+    rng = np.random.default_rng(p + cap + d)
+    masked = variant != "recs"
+    mask = (rng.random((len(q), b, cap)) < 0.5).astype(np.float32) if masked else None
+    kw = dict(capacity=cap, dim=d, rp=rp, compute_adc=adc)
+    tmask = None if mask is None else torch.as_tensor(mask)
+    if variant.startswith("recs"):
+        staged = recs[ids]
+        md, nd = ops.page_scan_recs(torch.as_tensor(staged), torch.as_tensor(q),
+                                    torch.as_tensor(lut), member_mask=tmask, **kw)
+    else:
+        md, nd = ops.page_scan(torch.as_tensor(recs), torch.as_tensor(ids),
+                               torch.as_tensor(q), torch.as_tensor(lut),
+                               member_mask=tmask, **kw)
+    if masked:
+        np.testing.assert_array_equal(np.isinf(md.numpy()), mask <= 0)
+    for i in range(len(q)):
+        jmask = None if mask is None else jnp.asarray(mask[i])
+        common = (jnp.asarray(q[i]), jnp.asarray(lut[i]))
+        if variant.startswith("recs"):
+            args = (jnp.asarray(staged[i]),) + common
+            outs = (jref.page_scan_recs_ref(*args, **kw, member_mask=jmask),
+                    pallas_page_scan_recs(*args, **kw, member_mask=jmask,
+                                          interpret=True))
+        else:
+            args = (jnp.asarray(recs), jnp.asarray(ids[i])) + common
+            outs = (jref.page_scan_ref(*args, **kw, member_mask=jmask),
+                    pallas_page_scan(*args, **kw, member_mask=jmask,
+                                     interpret=True))
+        for md_j, nd_j in outs:
+            np.testing.assert_allclose(md[i].numpy(), np.asarray(md_j), **TOL)
+            if adc:
+                np.testing.assert_allclose(nd[i].numpy(), np.asarray(nd_j), **TOL)
 
 
 def test_page_scan_recs_ref_is_page_scan_on_gathered_records():
@@ -120,11 +167,22 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     got = ops.page_scan(*t, capacity=4, dim=16, rp=12)
     want = tref.page_scan_ref(*t, capacity=4, dim=16, rp=12)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    mask = torch.ones((3, 3, 4))
+    got = ops.page_scan(*t, capacity=4, dim=16, rp=12, member_mask=mask)
+    assert torch.equal(got[0], want[0])
+    got = ops.page_scan_recs(t[0][t[1].long()], *t[2:], capacity=4, dim=16,
+                             rp=12, member_mask=mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     ops.pq_adc(torch.zeros((1, 3, 4), dtype=torch.uint8), t[3][:1])
     ops.hamming(torch.zeros((5, 2), dtype=torch.int32),
                 torch.zeros((1, 2), dtype=torch.int32))
-    assert ops.launch_counts() == {
-        "page_scan": 0, "page_scan_members": 0, "pq_adc": 0, "hamming": 0}
+    counts = ops.launch_counts()
+    assert set(counts) == {
+        "page_scan", "page_scan_members", "page_scan_masked",
+        "page_scan_members_masked", "page_scan_recs", "page_scan_recs_members",
+        "page_scan_recs_masked", "page_scan_recs_members_masked", "pq_adc",
+        "hamming"}
+    assert not any(counts.values())
 
 
 def test_kernel_route_refuses_cpu_tensors():
@@ -137,6 +195,9 @@ def test_kernel_route_refuses_cpu_tensors():
                         torch.zeros((1, 1), dtype=torch.int32), impl=impl)
     with pytest.raises(ValueError, match="CUDA"):
         page_scan_k.page_scan(recs, ids, q, lut, capacity=4, dim=16, rp=12)
+    with pytest.raises(ValueError, match="CUDA"):
+        page_scan_k.page_scan_recs(recs[ids.long()], q, lut, capacity=4,
+                                   dim=16, rp=12)
     with pytest.raises(ValueError, match="CUDA"):
         pq_adc_k.pq_adc(torch.zeros((1, 3, 4), dtype=torch.uint8), lut[:1])
     with pytest.raises(ValueError, match="CUDA"):

@@ -29,6 +29,7 @@ from repro_torch.core import (
     MemoryMode,
     PageANNIndex,
     SearchParams,
+    Tag,
     index_from_arrays,
     load_pageann,
     persist,
@@ -36,6 +37,10 @@ from repro_torch.core import (
 from repro_torch.core import lsh as tlsh
 from repro_torch.core import search as tsearch
 from repro_torch.core.config import AdaptiveParams
+
+# six test workers share the host's cores; the port's small tensors gain
+# nothing from more intra-op threads than one
+torch.set_num_threads(1)
 
 N, D, Q = 1500, 32, 40
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -162,10 +167,13 @@ def _random_states(rng, nq, beam, pages, cap, k=4):
     return ids, d, vis, pvis
 
 
-@pytest.mark.parametrize("io_batch", [1, 3, 5])
-def test_select_batch_matches_jax_including_slot0_quirk(io_batch):
+@pytest.mark.parametrize("io_batch,beam,pages", [
+    (1, 16, 7), (3, 16, 7), (5, 16, 7),
+    (5, 1024, 300),    # a filtered search's widened beam
+], ids=["1", "3", "5", "5-beam1024"])
+def test_select_batch_matches_jax_including_slot0_quirk(io_batch, beam, pages):
     rng = np.random.default_rng(io_batch)
-    nq, beam, pages, cap = 12, 16, 7, 3
+    nq, cap = 12, 3
     ids, d, vis, pvis = _random_states(rng, nq, beam, pages, cap)
     zeros = np.zeros(nq, np.int32)
     tstate = tsearch.BeamState(
@@ -221,21 +229,29 @@ def test_frozen_lanes_do_not_change(saved, dataset):
 
 # ------------------------------------------------------------ refusals
 def test_unported_options_raise_not_implemented(saved, dataset, tmp_path):
+    """Adaptive search is not ported yet (ROADMAP A5) and says so; filtered
+    search and memory budgets are, and refuse what the reference refuses."""
     _, directory = saved
     _, q = dataset
     tindex = load_pageann(directory, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tindex.search(q, filter=object())
+    with pytest.raises(ValueError, match="no MetadataSchema"):
+        tindex.search(q, filter=Tag("lang") == "en")
     with pytest.raises(NotImplementedError, match="item 5"):
         tindex.search(q, params=SearchParams(adaptive=AdaptiveParams(patience=2)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        load_pageann(directory, device="cpu", memory_budget=0.5)
+    tuned = str(tmp_path / "tuned")
+    shutil.copytree(directory, tuned)
+    doc = json.load(open(os.path.join(tuned, persist.MANIFEST)))
+    doc["tuned"] = {"default": SearchParams().to_json(), "points": []}
+    json.dump(doc, open(os.path.join(tuned, persist.MANIFEST), "w"))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        load_pageann(tuned, device="cpu")
+    assert load_pageann(directory, device="cpu", memory_budget=0.5).fetcher is not None
     copy = str(tmp_path / "schema")
     shutil.copytree(directory, copy)
     doc = json.load(open(os.path.join(copy, persist.MANIFEST)))
     doc["schema"] = {"tags": [], "numerics": []}
     json.dump(doc, open(os.path.join(copy, persist.MANIFEST), "w"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(IndexFormatError, match="sidecar is missing"):
         load_pageann(copy, device="cpu")
 
 
