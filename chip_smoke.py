@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 6-9 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 6-8 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -25,9 +25,19 @@ version. Phases, one JSON line each:
   filter    filtered search at selectivities 0.5 / 0.1 / 0.01 and a
             conjunction, resident and streamed, kernels and plain, held to
             a post-filter brute force
+  mutable   the HYBRID index wrapped in a ``MutableIndex``: 2,000 inserts
+            (one unseen tag value), 100 upserts, 500 deletes; unified search
+            through the kernels and the plain versions, unfiltered and
+            filtered, held to a brute force over the live set; dirty save,
+            load (resident and under the budget); then a compaction that
+            an insert triggers on a 1,000-vector index
 
-Each kernel's launches come from the path it serves, counted from 0 just
-before that path's run. Then one ``{"kernels": [...]}`` line, the
+The kernels phase also holds ``l2_distance`` (the delta scan) and
+``page_gather_l2`` against their plain versions, and the sift1m phase runs
+one delta scan over 262,144 vectors. Each kernel's launches come from the
+path it serves, counted from 0 just before that path's run; the only path of
+``page_gather_l2`` is its own entry point ``ops.page_gather_l2``, driven once
+in the kernels phase. Then one ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without the last line. It also exits non-zero when no
@@ -56,7 +66,14 @@ RTOL, ATOL = 1e-5, 1e-4     # float kernels: the summation order differs
 N_QUERIES = 1000            # one search batch, as a serving engine would send
 BUDGET = 0.25               # the streamed tier: a quarter of the pages resident
 SELECTIVITIES = (0.5, 0.1, 0.01)
-MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered search
+MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered search,
+                            # the mutable index over its live set
+# l2_distance computes |q|^2 - 2 q.x + |x|^2: its rounding error scales with
+# the squared norms, not with the distance (ROADMAP C1), so its atol is this
+# factor times max|q|^2 + max|x|^2 (about 16 float32 ulps of the largest)
+L2_ATOL_PER_NORM = 1e-6
+N_INSERTS, N_UPSERTS, N_DELETES = 2000, 100, 500   # the mutable phase's writes
+N_COMPACT_BASE = 1000       # the compaction's base: a build of its own
 
 _CU = "src/repro_torch/kernels/csrc/page_scan.cu"
 _PAGE_SCAN = "src/repro/kernels/page_scan.py:296"
@@ -76,6 +93,23 @@ KERNELS = {
                "src/repro/kernels/pq_adc.py:34"),
     "hamming": ("src/repro_torch/kernels/csrc/hamming.cu",
                 "src/repro/kernels/hamming.py:27"),
+    "l2_distance": ("src/repro_torch/kernels/csrc/l2_distance.cu",
+                    "src/repro/kernels/l2dist.py:33"),
+    "page_gather_l2": ("src/repro_torch/kernels/csrc/page_gather.cu",
+                       "src/repro/kernels/page_gather.py:36"),
+}
+
+
+# the run each kernel's launch count comes from
+PATHS = {
+    "page_scan": "e2e", "pq_adc": "e2e", "hamming": "e2e",
+    "page_scan_members": "e2e_memall",
+    "page_scan_recs": "stream", "page_scan_recs_members": "stream_memall",
+    "page_scan_masked": "filter", "page_scan_members_masked": "filter_memall",
+    "page_scan_recs_masked": "filter (streamed)",
+    "page_scan_recs_members_masked": "filter_memall (streamed)",
+    "l2_distance": "mutable (the delta scan)",
+    "page_gather_l2": "kernels (its only caller is ops.page_gather_l2)",
 }
 
 
@@ -134,7 +168,8 @@ class Smoke:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    def compare(self, name: str, got, want, *, exact: bool = False) -> float:
+    def compare(self, name: str, got, want, *, exact: bool = False,
+                atol: float = ATOL) -> float:
         torch = self.torch
         torch.cuda.synchronize()
         if exact:
@@ -147,7 +182,7 @@ class Smoke:
                     or torch.isnan(got).any():
                 raise AssertionError(f"{name}: kernel's non-finite values "
                                      "differ from the plain version's")
-            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=atol)
             fin = torch.isfinite(got)
             err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
         self.err[name] = max(self.err[name], err)
@@ -332,6 +367,82 @@ def _hamming_case(s: Smoke, codes, qcodes) -> dict:
     )
 
 
+def l2_atol(q, x) -> float:
+    """The expanded-form tolerance: L2_ATOL_PER_NORM (max|q|^2 + max|x|^2)."""
+    return L2_ATOL_PER_NORM * float((q * q).sum(-1).max() + (x * x).sum(-1).max())
+
+
+def _l2_bound(nq: int, n: int, d: int) -> dict:
+    """Both inputs read once, the (Q, N) output written once; the product's
+    2 Q N d flops, the norms' 2 (Q + N) d and the epilogue's 3 Q N."""
+    return _bound((nq * d + n * d + nq * n) * 4,
+                  2 * nq * n * d + 2 * (nq + n) * d + 3 * nq * n)
+
+
+def _l2_case(s: Smoke, q, x, reps: int) -> dict:
+    """``l2_distance`` against its plain version, with the library call
+    ``torch.cdist`` (matrix-product mode, TF32 off; it also takes a square
+    root) timed beside it as the yardstick."""
+    torch = s.torch
+    from repro_torch.kernels import ops
+
+    atol = l2_atol(q, x)
+    got = ops.l2_distance(q, x)
+    err = s.compare("l2_distance", got, ops.l2_distance(q, x, impl="plain"),
+                    atol=atol)
+
+    def library():
+        return torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist")
+
+    # the yardstick computes the same function up to its square root
+    torch.testing.assert_close(library() ** 2, got.clamp_min(0.0),
+                               rtol=1e-4, atol=4 * atol)
+    (nq, d), n = q.shape, x.shape[0]
+    return dict(
+        name="l2_distance", q=nq, n=n, dim=d, atol=atol, max_abs_err=err,
+        ms=s.time_ms(lambda: ops.l2_distance(q, x), reps),
+        call_ms=s.call_ms(lambda: ops.l2_distance(q, x), reps),
+        plain_ms=s.time_ms(lambda: ops.l2_distance(q, x, impl="plain"), reps),
+        **_l2_bound(nq, n, d),
+        library_ms=s.time_ms(library, reps),
+    )
+
+
+def _page_gather_case(s: Smoke, recs, ids, q, *, cap: int) -> dict:
+    """``page_gather_l2`` over the main path's HYBRID page vectors (d = 128:
+    member i is row i of its record, so the (P, cap, d) pages are the first
+    cap rows): its path (one call of ``ops.page_gather_l2``, counted), its
+    plain version, and ``page_scan``'s member scores on the same pages."""
+    torch = s.torch
+    from repro_torch.kernels import ops
+
+    pages = recs[:, :cap, :].contiguous()
+    ops.reset_launch_counts()
+    got = ops.page_gather_l2(pages, ids, q)            # the path, counted
+    launches = ops.launch_counts()["page_gather_l2"]
+    err = s.compare("page_gather_l2", got,
+                    ops.page_gather_l2(pages, ids, q, impl="plain"))
+    md, _ = ops.page_scan(recs, ids, q, None, capacity=cap, dim=q.shape[1],
+                          rp=1, compute_adc=False)
+    torch.testing.assert_close(got, md, rtol=RTOL, atol=ATOL)
+    nq, b = ids.shape
+    distinct = int(torch.unique(ids).numel())
+    d = q.shape[1]
+    return dict(
+        name="page_gather_l2", q=nq, b=b, capacity=cap, dim=d,
+        launches=launches, max_abs_err=err,
+        page_scan_max_abs_diff=float((got - md).abs().max()),
+        equals_page_scan_bitwise=bool(torch.equal(got, md)),
+        ms=s.time_ms(lambda: ops.page_gather_l2(pages, ids, q), 50),
+        call_ms=s.call_ms(lambda: ops.page_gather_l2(pages, ids, q), 50),
+        plain_ms=s.time_ms(lambda: ops.page_gather_l2(pages, ids, q,
+                                                      impl="plain"), 10),
+        **_bound(distinct * cap * d * 4 + ids.numel() * 4 + q.numel() * 4
+                 + nq * b * cap * 4, nq * b * cap * d * 3),
+        library_ms=None,
+    )
+
+
 def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
                   n_queries: int) -> None:
     """Every kernel against its plain version at the shapes the main path
@@ -342,6 +453,8 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
     import numpy as np
 
     torch = s.torch
+    from repro_torch.kernels import ops
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(s.seed)
     b = cfg_hybrid.io_batch
@@ -370,6 +483,10 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
         row = _page_scan_case(s, recs, ids, q, lut, cap=cap, dim=cfg.dim,
                               rp=rp, m=m, adc=adc, reps=50)
         cases.append(row)
+        if cfg is cfg_hybrid:
+            # page_gather_l2 at the main path's HYBRID page store
+            s.rows["page_gather_l2"] = _page_gather_case(s, recs, ids, q, cap=cap)
+            cases.append(s.rows["page_gather_l2"])
         if cfg is cfg_hybrid or cfg is cfg_memall:
             s.rows[row["name"]] = row
             # the filtered (masked) and streamed (staged) variants at the
@@ -408,6 +525,29 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
     row = _hamming_case(s, lsh, qc)
     s.rows["hamming"] = row
     cases.append(row)
+
+    # l2_distance: the mutable phase's delta scan (its 2,100 rows padded to
+    # C = 4,096) at d = 128, and d = 32 / 200 beside it; clustered inputs
+    # with query 0 equal to row 0 (a self-match)
+    c_pad = 4096
+    for dim in (128, 32, 200):
+        centers = rng.standard_normal((64, dim)).astype(np.float32)
+        x = centers[rng.integers(0, 64, c_pad)] + 0.15 * rng.standard_normal(
+            (c_pad, dim)).astype(np.float32)
+        qv = x[rng.integers(0, c_pad, n_queries)] + 0.1 * rng.standard_normal(
+            (n_queries, dim)).astype(np.float32)
+        qv[0] = x[0]
+        xt = torch.as_tensor(x.astype(np.float32)).to(dev)
+        qt = torch.as_tensor(qv.astype(np.float32)).to(dev)
+        row = _l2_case(s, qt, xt, 50)
+        self_d = float(ops.l2_distance(qt[:1], xt[:1])[0, 0])
+        if abs(self_d) > row["atol"]:
+            raise AssertionError(f"l2_distance: a self-match scores {self_d}, "
+                                 f"beyond the stated tolerance {row['atol']}")
+        row["self_match"] = self_d
+        if dim == 128:
+            s.rows["l2_distance"] = row
+        cases.append(row)
     for row in cases:
         emit("kernels", **row)
 
@@ -457,6 +597,48 @@ def phase_sift1m(s: Smoke, cfg_hybrid, cfg_memall) -> None:
     qc = torch.randint(-2**31, 2**31 - 1, (nq, words), generator=gen,
                        device=dev, dtype=torch.int32)
     emit("sift1m", **_hamming_case(s, lsh, qc))
+    del mem_codes, nids, lut
+    torch.cuda.empty_cache()
+    _sift1m_delta_scan(s, gen)
+
+
+def _sift1m_delta_scan(s: Smoke, gen) -> None:
+    """One delta scan at SIFT1M scale: a delta tier of a quarter of the
+    base (``DeltaParams.compact_fraction``), 262,144 vectors at d = 128
+    (134 MB, about 90% live), against 1,024 queries. The L2 kernel against
+    its plain version and ``torch.cdist``, then the scan's top-10 through
+    the kernel and through the plain version."""
+    torch = s.torch
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    nq, c, d, k = 1024, 262_144, 128, 10
+    x = torch.randn((c, d), generator=gen, device=dev)
+    q = torch.randn((nq, d), generator=gen, device=dev)
+    live = torch.rand((c,), generator=gen, device=dev) < 0.9
+    row = _l2_case(s, q, x, 5)
+    dist, slots = ops.delta_scan(q, x, live, k)
+    pdist, pslots = ops.delta_scan(q, x, live, k, impl="plain")
+    torch.testing.assert_close(dist, pdist, rtol=RTOL, atol=row["atol"])
+    agree = float((slots == pslots).all(1).float().mean())
+    if agree < 0.99:
+        raise AssertionError(f"sift1m delta scan: kernel and plain top-{k} ids "
+                             f"agree for only {agree:.4f} of queries")
+    if not bool(live[slots.long()].all()):
+        raise AssertionError("sift1m delta scan: a dead row was returned")
+    full = ops.l2_distance(q, x)
+
+    def topk():
+        dd = torch.where(live[None, :], full, float("inf"))
+        vals, idx = torch.sort(dd, dim=-1, stable=True)
+        return vals[:, :k], idx[:, :k]
+
+    emit("sift1m", delta_bytes=x.numel() * 4, ids_agree_share=agree,
+         topk_ms=s.time_ms(topk, 3),
+         scan_ms=s.time_ms(lambda: ops.delta_scan(q, x, live, k), 3),
+         plain_scan_ms=s.time_ms(
+             lambda: ops.delta_scan(q, x, live, k, impl="plain"), 3),
+         **row)
 
 
 def _streamed_hop(s: Smoke, recs, ids, q, lut, *, cap: int, rp: int) -> None:
@@ -821,6 +1003,256 @@ def run_filter(ctx: dict, *, device: str, exprs: dict,
     return dict(launches=launches, stream_launches=stream_launches)
 
 
+def fresh_vectors(n_base: int, n_new: int, dim: int, seed: int):
+    """``n_new`` vectors from the seeded clustered distribution of
+    ``make_data`` (the same 64 centres: the generator draws them first)."""
+    from repro_torch.data.pipeline import clustered_vectors
+
+    return clustered_vectors(n_base + n_new, dim, num_clusters=64,
+                             seed=seed)[n_base:]
+
+
+def _mutable_writes(m, x, meta, *, seed: int):
+    """The mutable phase's writes: N_INSERTS fresh vectors (every tenth with
+    the tag value "t10", which the base never saw), N_UPSERTS base ids moved
+    to new vectors, N_DELETES other base ids deleted. Returns the live set
+    as (external ids, vectors, metadata columns), the deleted and upserted
+    ids and the upserted vectors."""
+    import numpy as np
+
+    n, dim = x.shape
+    rng = np.random.default_rng(seed + 3)
+    new = fresh_vectors(n, N_INSERTS, dim, seed)
+    new_meta = {"topic": [f"t{i}" for i in rng.integers(0, 10, N_INSERTS)],
+                "score": rng.uniform(0.0, 1.0, N_INSERTS).tolist()}
+    new_meta["topic"][::10] = ["t10"] * len(new_meta["topic"][::10])
+    pick = rng.permutation(n)
+    upserted, deleted = pick[:N_UPSERTS], pick[N_UPSERTS:N_UPSERTS + N_DELETES]
+    moved = (x[upserted] + 0.3 * rng.standard_normal(
+        (N_UPSERTS, dim))).astype(np.float32)
+    moved_meta = {"topic": ["t10"] * N_UPSERTS,
+                  "score": rng.uniform(0.0, 1.0, N_UPSERTS).tolist()}
+    new_ids = np.arange(n, n + N_INSERTS)
+    m.insert(new, ids=new_ids, metadata=new_meta)
+    m.insert(moved, ids=upserted, metadata=moved_meta)
+    if m.delete(deleted) != N_DELETES:
+        raise AssertionError("mutable: delete did not remove every id")
+
+    keep = np.ones(n, bool)
+    keep[upserted] = keep[deleted] = False
+    live_ids = np.concatenate([np.flatnonzero(keep), new_ids, upserted])
+    live_x = np.concatenate([x[keep], new, moved])
+    live_meta = {f: [meta[f][i] for i in np.flatnonzero(keep)] + new_meta[f]
+                 + moved_meta[f] for f in meta}
+    return (live_ids, live_x, live_meta), deleted, upserted, moved
+
+
+def run_mutable(ctx: dict, *, device: str, seed: int,
+                label: str = "mutable") -> dict:
+    """The e2e index wrapped in a ``MutableIndex``: writes, then the unified
+    search (base search + delta scan through ``l2_distance`` + merge) of the
+    same queries, through the kernels and the plain versions, unfiltered and
+    at selectivity 0.1, held to a brute force over the live set; then a
+    dirty save and load, resident and under the budget, equal to the saved
+    state exactly. Returns the counted search's launches."""
+    import numpy as np
+
+    from repro_torch.core import MutableIndex, Num, recall_at_k
+    from repro_torch.core import filter as filter_mod
+    from repro_torch.core.delta import scan_delta
+    from repro_torch.core.vamana import brute_force_knn
+    from repro_torch.kernels import ops
+
+    index, x, q, meta = ctx["index"], ctx["x"], ctx["q"], ctx["meta"]
+    m = MutableIndex(index, auto_compact=False)
+    t0 = time.perf_counter()
+    (live_ids, live_x, live_meta), deleted, upserted, moved = _mutable_writes(
+        m, x, meta, seed=seed)
+    write_s = time.perf_counter() - t0
+    if m.delta_fraction >= m.delta_params.compact_fraction:
+        raise AssertionError(f"{label}: delta fraction {m.delta_fraction} "
+                             "is past the compaction trigger")
+
+    def sync():
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+
+    score_q = float(np.quantile(np.asarray(meta["score"]), 0.1))
+    exprs = {None: None, "score<=q0.1": Num("score").le(score_q)}
+    for expr in exprs.values():                  # warm-up: the delta upload
+        m.search(q, k=10, filter=expr)
+        m.search(q, k=10, filter=expr, impl="plain")
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = m.search(q, k=10)                      # the mutable path, counted
+    sync()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    walls = {"mutable": [wall], "mutable_plain": [], "base": [], "base_k": [],
+             "delta_scan": []}
+    view = m._state.delta
+    base_k = 10 + m._oversample(m.stats.tombstones)
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls[key].append(time.perf_counter() - t0)
+        return out
+
+    plain = timed("mutable_plain", lambda: m.search(q, k=10, impl="plain"))
+    for _ in range(2):                            # in turns
+        timed("base", lambda: index.search(q, k=10))
+        timed("mutable", lambda: m.search(q, k=10))
+        # the mutable search's own parts: the base search at the
+        # tombstone-oversampled k, and the delta scan
+        timed("base_k", lambda: index.search(q, k=base_k))
+        timed("delta_scan", lambda: scan_delta(view, q, 10))
+        timed("mutable_plain", lambda: m.search(q, k=10, impl="plain"))
+    med = {key: float(np.median(v)) for key, v in walls.items()}
+    profile = _profile_search(m, q) if device == "cuda" else None
+    if profile is not None and profile["device_busy_ms"] is not None:
+        profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] / (
+            med["mutable"] * 1e3)
+
+    rows = []
+    for name, expr in exprs.items():
+        got = res if expr is None else m.search(q, k=10, filter=expr)
+        ref = plain if expr is None else m.search(q, k=10, filter=expr,
+                                                  impl="plain")
+        if expr is None:
+            pool = np.arange(live_ids.size)
+        else:
+            cf = filter_mod.compile_filter(expr, m.schema, m.vocab)
+            enc = filter_mod.encode_metadata(m.schema, m.vocab, live_meta,
+                                             live_ids.size)
+            pool = np.flatnonzero(filter_mod.filter_mask_np(cf, enc.tags,
+                                                            enc.nums))
+        truth = live_ids[pool[brute_force_knn(live_x[pool], q, 10)]]
+        recall = recall_at_k(got.ids, truth)
+        agree = float((got.ids == ref.ids).all(1).mean())
+        rows.append(dict(filter=name, recall_at_10=recall,
+                         plain_recall_at_10=recall_at_k(ref.ids, truth),
+                         ids_agree_share=agree,
+                         mean_ios=float(got.ios.mean()),
+                         mean_hops=float(got.hops.mean())))
+        if np.isin(got.ids, deleted).any():
+            raise AssertionError(f"{label} {name}: a deleted id was returned")
+        if recall < MIN_RECALL:
+            raise AssertionError(f"{label} {name}: recall@10 {recall:.4f} < "
+                                 f"{MIN_RECALL}")
+        if agree < 0.99:
+            raise AssertionError(f"{label} {name}: kernel and plain paths agree "
+                                 f"on ids for only {agree:.4f} of queries")
+    up = m.search(moved, k=1)
+    if not np.array_equal(up.ids[:, 0], upserted):
+        raise AssertionError(f"{label}: an upserted id does not return its "
+                             "new vector")
+    if device == "cuda" and launches["l2_distance"] <= 0:
+        raise AssertionError(f"{label}: l2_distance never launched")
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    directory = tempfile.mkdtemp(dir=SCRATCH)
+    try:
+        t0 = time.perf_counter()
+        m.save(directory)
+        save_s = time.perf_counter() - t0
+        loaded = {"resident": MutableIndex.load(directory, device=device),
+                  "budget": MutableIndex.load(directory, device=device,
+                                              memory_budget=BUDGET)}
+        for expr in exprs.values():
+            want = m.search(q, k=10, filter=expr)
+            for how, lm in loaded.items():
+                got = lm.search(q, k=10, filter=expr)
+                for field in got._fields:
+                    if not np.array_equal(getattr(got, field),
+                                          getattr(want, field)):
+                        raise AssertionError(
+                            f"{label}: {how} load's {field} differ from the "
+                            "saved state's")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    st = m.stats
+    out = dict(
+        n_base=int(st.base_rows), inserts=N_INSERTS, upserts=N_UPSERTS,
+        deletes=N_DELETES, delta_live=st.delta_live, delta_rows=view.count,
+        delta_padded=int(view.vecs.shape[0]), tombstones=st.tombstones,
+        delta_fraction=st.delta_fraction,
+        base_k=base_k, write_s=write_s, searches=rows, launches=launches,
+        qps=len(q) / med["mutable"], plain_qps=len(q) / med["mutable_plain"],
+        base_qps=len(q) / med["base"],
+        search_ms=med["mutable"] * 1e3, base_search_ms=med["base"] * 1e3,
+        base_k_search_ms=med["base_k"] * 1e3,
+        delta_scan_ms=med["delta_scan"] * 1e3,
+        delta_scan_share=med["delta_scan"] / med["mutable"],
+        search_ms_runs=[w * 1e3 for w in walls["mutable"]],
+        profile=profile,
+        save_s=save_s, saved_equals_loaded=True,
+    )
+    emit(label, **out)
+    return out
+
+
+def run_compaction(cfg, *, device: str, seed: int,
+                   label: str = "compaction") -> dict:
+    """Compaction on a small mutable index: a base of N_COMPACT_BASE
+    vectors, 5% of them deleted, then inserts past ``compact_fraction`` (0.21
+    of the live base, then 0.32) so the insert itself compacts. The rebuilt index is held to a fresh build over the
+    merged set: recall@10 against the merged set's brute force within 0.005
+    (the PQ k-means sums with atomics on the card, so two builds of the same
+    data may differ in the last bits)."""
+    import numpy as np
+
+    from repro_torch.core import MutableIndex, PageANNIndex, recall_at_k
+    from repro_torch.core.vamana import brute_force_knn
+
+    n = N_COMPACT_BASE
+    n_del, n_first, n_new = n // 20, n // 5, 3 * n // 10
+    x, q, _ = make_data(n, cfg.dim, 200, seed + 5)
+    new = fresh_vectors(n, n_new, cfg.dim, seed + 5)
+    t0 = time.perf_counter()
+    m = MutableIndex(PageANNIndex.build(x, cfg, device=device))
+    base_build_s = time.perf_counter() - t0
+    m.delete(np.arange(n_del))
+    m.insert(new[:n_first])                   # 0.21 of the base: below
+    gen_before = m.generation
+    fraction_before = m.delta_fraction
+    if gen_before != 0:
+        raise AssertionError(f"{label}: compacted below the trigger")
+    t0 = time.perf_counter()
+    m.insert(new[n_first:])                   # 0.32: past it, compacts
+    compact_s = time.perf_counter() - t0
+    if m.generation != gen_before + 1 or m.stats.delta_live != 0:
+        raise AssertionError(f"{label}: the insert did not compact")
+    merged = np.concatenate([x[n_del:], new])
+    ids = np.arange(n_del, n + n_new)
+    truth = ids[brute_force_knn(merged, q, 10)]
+    got = m.search(q, k=10)
+    t0 = time.perf_counter()
+    fresh = PageANNIndex.build(merged, cfg, device=device)
+    fresh_build_s = time.perf_counter() - t0
+    want = fresh.search(q, k=10)
+    want_ids = np.where(want.ids >= 0, ids[np.maximum(want.ids, 0)], -1)
+    recall, fresh_recall = recall_at_k(got.ids, truth), recall_at_k(want_ids, truth)
+    out = dict(n_base=n, deletes=n_del, inserts=n_new,
+               generation_before=gen_before,
+               generation=m.generation, delta_fraction_before=fraction_before,
+               compact_s=compact_s, base_build_s=base_build_s,
+               fresh_build_s=fresh_build_s, recall_at_10=recall,
+               fresh_recall_at_10=fresh_recall,
+               ids_equal_fresh_share=float((got.ids == want_ids).all(1).mean()))
+    emit(label, **out)
+    if abs(recall - fresh_recall) > 0.005:
+        raise AssertionError(f"{label}: recall {recall:.4f} after compaction, "
+                             f"{fresh_recall:.4f} for a fresh build")
+    return out
+
+
 def filter_exprs(scores, *, full: bool) -> dict:
     """The predicates of the filter phase: numeric bounds at each
     selectivity (quantiles of the score column) and a tag-and-numeric
@@ -900,8 +1332,15 @@ def main(argv=None) -> int:
         launches[name] = filt["launches"][name]
         name = "page_scan_recs_masked" if hybrid else "page_scan_recs_members_masked"
         launches[name] = filt["stream_launches"][name]
+        if hybrid:
+            mut = run_mutable(ctx, device="cuda", seed=args.seed)
+            launches["l2_distance"] = mut["launches"]["l2_distance"]
         del ctx
         torch.cuda.empty_cache()
+    run_compaction(cfg_h, device="cuda", seed=args.seed)
+    # page_gather_l2 has no caller but its entry point: its path is the one
+    # ops.page_gather_l2 call of the kernels phase
+    launches["page_gather_l2"] = smoke.rows["page_gather_l2"]["launches"]
     never = [name for name in KERNELS if launches.get(name, 0) <= 0]
     if never:
         raise AssertionError(f"never launched on their paths: {never}")
@@ -911,7 +1350,8 @@ def main(argv=None) -> int:
         r = smoke.rows[name]
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=smoke.err[name],
+            launches=launches[name], launches_path=PATHS[name],
+            max_abs_err=smoke.err[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))

@@ -1,31 +1,45 @@
 """PageANN core, ported to PyTorch: the counterpart of ``repro.core``."""
 from repro_torch.core.config import (
+    DeltaParams,
     FilterParams,
     MemoryBudget,
     MemoryMode,
     PageANNConfig,
     SearchParams,
 )
+from repro_torch.core.delta import DeltaTier, MutableIndex
 from repro_torch.core.filter import FilterExpr, MetadataSchema, Num, Tag
 from repro_torch.core.index import BuildStats, PageANNIndex, recall_at_k
-from repro_torch.core.persist import IndexFormatError, index_from_arrays, load_pageann
+from repro_torch.core.persist import (
+    IndexFormatError,
+    index_from_arrays,
+    load_index,
+    load_pageann,
+)
+from repro_torch.core.protocol import MutableVectorIndex, VectorIndex
 from repro_torch.core.stream import PageFetcher
 
 __all__ = [
     "BuildStats",
+    "DeltaParams",
+    "DeltaTier",
     "FilterExpr",
     "FilterParams",
     "IndexFormatError",
     "MemoryBudget",
     "MemoryMode",
     "MetadataSchema",
+    "MutableIndex",
+    "MutableVectorIndex",
     "Num",
     "PageANNConfig",
     "PageANNIndex",
     "PageFetcher",
     "SearchParams",
     "Tag",
+    "VectorIndex",
     "index_from_arrays",
+    "load_index",
     "load_pageann",
     "recall_at_k",
 ]

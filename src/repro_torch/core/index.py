@@ -325,6 +325,17 @@ class PageANNIndex:
             return dict(pages_fetched=0, fetch_hits=0, fetch_wall_s=0.0)
         return self.fetcher.fetch_stats()
 
+    def vectors_by_original_id(self) -> np.ndarray:
+        """Member vectors in original id order: the inverse of the build's
+        page packing and id reassignment, read from the host copy of the
+        page store (the vectors verbatim as f32, an exact round trip). The
+        dataset a compaction (``core.delta``) merges fresh inserts into."""
+        flat = np.asarray(self.store.vecs).reshape(-1, self.store.dim)
+        valid = self.store.new_to_old >= 0
+        out = np.empty((self.store.num_vectors, self.store.dim), np.float32)
+        out[self.store.new_to_old[valid]] = flat[valid]
+        return out
+
     def translate_ids(self, ids: np.ndarray) -> np.ndarray:
         """Reassigned (page-packed) vector ids -> original ids, PAD kept."""
         ids = np.asarray(ids)

@@ -12,9 +12,16 @@ The artifact is the reference's, byte for byte in layout:
   <dir>/meta.npz        page-slot-aligned metadata columns (only with a
                         schema)
 
-It is framework-neutral, so ``load_pageann`` is how an index built and
-saved by the JAX package reaches the port (and the reverse through
-``save_pageann``). uint32 LSH codes are stored as uint32 and held in torch
+A mutable index (``core.delta.MutableIndex``) persists as
+``kind="mutable"``: the frozen base as a nested artifact under ``base/``, a
+``delta.npz`` sidecar (inserted vectors, liveness, tombstones, external id
+map, metadata codes) and a manifest ``generation`` counter; compaction
+replaces the whole directory atomically (``swap_mutable``). ``load_index``
+opens either kind.
+
+It is framework-neutral, so ``load_pageann`` / ``load_mutable`` are how an
+index built and saved by the JAX package reaches the port (and the reverse
+through ``save_pageann`` / ``save_mutable``). uint32 LSH codes are stored as uint32 and held in torch
 as int32 views of the same bits. A load under a memory budget pins the
 hottest pages on the device and serves the rest from the memmap per hop
 (``core.stream.PageFetcher``). Unreadable artifacts raise
@@ -23,8 +30,10 @@ hottest pages on the device and serves the rest from the memmap per hop
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
+import shutil
 import zipfile
 
 import numpy as np
@@ -46,6 +55,8 @@ MANIFEST = "manifest.json"
 PAGES_BIN = "pages.bin"
 ARRAYS_NPZ = "arrays.npz"
 META_NPZ = "meta.npz"
+DELTA_NPZ = "delta.npz"
+BASE_SUBDIR = "base"
 
 
 class IndexFormatError(ValueError):
@@ -436,3 +447,167 @@ def load_pageann(directory: str, *, device: str | torch.device = "cuda",
     (index.schema, index.vocab, index.meta,
      index.meta_host) = _load_meta(directory, doc, index.store, index.device)
     return index
+
+
+# ----------------------------------------------------------------- mutable
+def save_mutable(state, directory: str) -> None:
+    """Write a :class:`repro_torch.core.delta.MutableIndex` state under
+    ``directory``: the frozen base as a full nested artifact plus the
+    ``delta.npz`` sidecar, in the reference's format, so a restarted server
+    (of either package) reloads the dirty index losslessly."""
+    os.makedirs(directory, exist_ok=True)
+    state.base.save(os.path.join(directory, BASE_SUBDIR))
+    dv = state.delta
+    c = dv.count
+    extra = {}
+    if getattr(state.base, "schema", None) is not None:
+        extra = dict(
+            delta_tags=np.asarray(dv.tags[:c], np.int32),
+            delta_nums=np.asarray(dv.nums[:c], np.float32),
+        )
+    np.savez(
+        os.path.join(directory, DELTA_NPZ),
+        delta_vecs=np.asarray(dv.vecs[:c], np.float32),
+        delta_ids=np.asarray(dv.ids[:c], np.int64),
+        delta_live=np.asarray(dv.live[:c], bool),
+        tombstones=np.asarray(state.tombstones, np.int64),
+        base_ids=np.asarray(state.base_ids, np.int64),
+        **extra,
+    )
+    write_manifest(
+        directory,
+        dict(
+            kind="mutable",
+            base_kind=read_manifest(os.path.join(directory, BASE_SUBDIR))[
+                "kind"
+            ],
+            dim=state.base.dim,
+            generation=state.generation,
+            base_rows=int(state.base_ids.size),
+            delta_rows=int(c),
+            delta_live=int(dv.n_live),
+            tombstones=int(state.tombstones.size),
+            # the UNIFIED vocabulary (base + values seen only in delta
+            # inserts): delta tag codes are positions in these tuples
+            vocab=(
+                {f: list(vs) for f, vs in state.vocab.items()}
+                if state.vocab is not None else None
+            ),
+        ),
+    )
+
+
+def swap_mutable(state, directory: str) -> None:
+    """Replace the artifact at ``directory`` with ``state`` (the compaction
+    swap): write a sibling tmp dir, then two renames. Both sides of the swap
+    are intact on disk at every moment, and readers holding memmaps of the
+    old files keep valid file descriptors. The canonical path is briefly
+    absent between the two renames: a crash there leaves the previous
+    artifact complete under ``<dir>.old.<gen>`` and the new one under
+    ``<dir>.tmp.<gen>``. Stale ``.tmp`` / ``.old`` siblings of an earlier
+    crashed swap are swept first."""
+    clean = directory.rstrip(os.sep)
+    for leftover in glob.glob(f"{glob.escape(clean)}.tmp.*") + glob.glob(
+        f"{glob.escape(clean)}.old.*"
+    ):
+        if os.path.isdir(leftover):
+            shutil.rmtree(leftover)
+    tmp = f"{clean}.tmp.{state.generation}"
+    old = f"{clean}.old.{state.generation}"
+    save_mutable(state, tmp)
+    os.rename(clean, old)
+    os.rename(tmp, clean)
+    shutil.rmtree(old)
+
+
+def load_mutable(directory: str, *, device: str | torch.device = "cuda",
+                 memory_budget=None):
+    """Reload a saved mutable index (base + delta sidecar) onto ``device``;
+    searches on it equal the saved dirty state's bit for bit.
+    ``memory_budget`` applies to the frozen base (the delta tier is in
+    memory by construction)."""
+    from repro_torch.core.delta import MutableIndex
+
+    doc = read_manifest(directory)
+    if doc["kind"] != "mutable":
+        raise ValueError(
+            f"{directory}: kind={doc['kind']!r}, not a mutable index"
+        )
+    base = load_index(os.path.join(directory, BASE_SUBDIR), device=device,
+                      memory_budget=memory_budget)
+    npz_path = os.path.join(directory, DELTA_NPZ)
+    if not os.path.isfile(npz_path):
+        raise IndexFormatError(f"{npz_path}: missing delta sidecar")
+    with np.load(npz_path) as z:
+        arrays = {name: z[name] for name in z.files}
+
+    index = MutableIndex(base, base_ids=arrays["base_ids"])
+    live = arrays["delta_live"]
+    if live.size:
+        # restore the append log verbatim (it may hold dead rows of
+        # superseded or deleted ids): slot numbering, and so the scan's
+        # output, equals the saved index's
+        c = int(live.size)
+        tier = index._delta
+        tier._grow(c)
+        tier._vecs[:c] = arrays["delta_vecs"]
+        tier._ids[:c] = arrays["delta_ids"]
+        tier._live[:c] = live
+        if "delta_tags" in arrays:
+            tier._tags[:c] = arrays["delta_tags"]
+            tier._nums[:c] = arrays["delta_nums"]
+        tier._count = c
+        tier._slot_of = {
+            int(arrays["delta_ids"][i]): i for i in range(c) if live[i]
+        }
+        tier._view = None
+    vocab_doc = doc.get("vocab")
+    if vocab_doc is not None:
+        # the persisted UNIFIED vocabulary supersedes the base's copy the
+        # constructor installed: delta tag codes index into this one
+        index._vocab = {f: tuple(vs) for f, vs in vocab_doc.items()}
+    index._state = index._state._replace(
+        tombstones=np.asarray(arrays["tombstones"], np.int64),
+        delta=index._delta.snapshot(),
+        generation=int(doc.get("generation", 0)),
+        vocab=dict(index._vocab) if vocab_doc is not None else (
+            index._state.vocab
+        ),
+    )
+    index._next_id = int(
+        max(
+            arrays["base_ids"].max(initial=-1),
+            arrays["delta_ids"].max(initial=-1),
+        )
+        + 1
+    )
+    index._directory = directory
+    return index
+
+
+# ------------------------------------------------------------------ any kind
+def load_index(directory: str, *, device: str | torch.device = "cuda",
+               memory_budget=None):
+    """Load whichever index kind saved ``directory`` onto ``device``:
+    ``"pageann"`` as a :class:`PageANNIndex`, ``"mutable"`` as a
+    :class:`MutableIndex`. ``memory_budget`` caps the device-resident pages
+    of the page tier (a mutable index's base tier). The reference's other
+    kinds are not ported yet and raise ``NotImplementedError``."""
+    kind = read_manifest(directory)["kind"]
+    if kind == "pageann":
+        return load_pageann(directory, device=device,
+                            memory_budget=memory_budget)
+    if kind == "mutable":
+        return load_mutable(directory, device=device,
+                            memory_budget=memory_budget)
+    if kind in ("diskann", "starling"):
+        raise NotImplementedError(
+            f"{directory}: kind={kind!r} baseline indexes are not ported "
+            "yet: ROADMAP queue A, item 9"
+        )
+    if kind == "sharded":
+        raise NotImplementedError(
+            f"{directory}: kind='sharded' indexes are not ported yet: "
+            "ROADMAP queue A, item 12"
+        )
+    raise ValueError(f"{directory}: unknown index kind {kind!r}")

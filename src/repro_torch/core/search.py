@@ -31,6 +31,9 @@ kernel code as ``page_scan``, so every result equals the resident search
 bit for bit. Filtered search pushes the predicate into the scan as a member
 mask; neighbour estimates stay unmasked so the graph stays traversable.
 
+``merge_topk_streams`` folds the mutable index's two result streams (the
+page-file search and the delta tier's scan) into one top-k.
+
 Ties break as in the reference: ``lax.top_k`` and ``lax.sort(is_stable=
 True)`` both favour the lower index, so every selection here is a stable
 ascending ``torch.sort`` and a prefix — never ``torch.topk``, whose order
@@ -593,3 +596,28 @@ def stream_search(
         queries, data, params, capacity=capacity, mode=mode, meta=meta,
         cfilter=cfilter, impl=impl, fetch=stage,
     )
+
+
+def merge_topk_streams(
+    ids_a: torch.Tensor,
+    d_a: torch.Tensor,
+    ids_b: torch.Tensor,
+    d_b: torch.Tensor,
+    *,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two per-query top-k result streams into one (Q, k) top-k.
+
+    The fresh + disk unification point of the mutable index
+    (``core.delta``): stream *a* is the page-file search (tombstones
+    already masked to PAD/INF), stream *b* the delta scan, (Q, ka) and
+    (Q, kb), PAD ids carrying INF. One stable ascending top-k over the
+    concatenation, so on a tie the lower column wins and the base stream
+    beats the delta (``lax.top_k``'s order); non-finite winners are
+    re-masked to PAD. Returns (ids (Q, k) int32, dists (Q, k) f32).
+    """
+    d = torch.cat([d_a, d_b], dim=1)
+    ids = torch.cat([ids_a, ids_b], dim=1).to(torch.int32)
+    vals, idx = _top_k_merge(d, k)
+    merged = torch.gather(ids, 1, idx)
+    return torch.where(torch.isfinite(vals), merged, PAD), vals

@@ -21,7 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 
-SOURCES = ("page_scan.cu", "pq_adc.cu", "hamming.cu")
+SOURCES = ("page_scan.cu", "pq_adc.cu", "hamming.cu", "l2_distance.cu",
+           "page_gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "pageann_page_scan": [_P] * 7 + [_I] * 12 + [_P],
     "pageann_pq_adc": [_P] * 3 + [_I] * 4 + [_P],
     "pageann_hamming": [_P] * 3 + [_I] * 3 + [_P],
+    "pageann_l2_distance": [_P] * 3 + [_I] * 3 + [_P],
+    "pageann_page_gather_l2": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 # launches of each kernel since the last reset: every wrapper adds one where
@@ -46,7 +49,7 @@ LAUNCHES = {
         "page_scan", "page_scan_members", "page_scan_masked",
         "page_scan_members_masked", "page_scan_recs", "page_scan_recs_members",
         "page_scan_recs_masked", "page_scan_recs_members_masked",
-        "pq_adc", "hamming",
+        "pq_adc", "hamming", "l2_distance", "page_gather_l2",
     )
 }
 

@@ -13,11 +13,15 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import hamming as hamming_k
+from repro_torch.kernels import l2_distance as l2_distance_k
+from repro_torch.kernels import page_gather as page_gather_k
 from repro_torch.kernels import page_scan as page_scan_k
 from repro_torch.kernels import pq_adc as pq_adc_k
 
 reset_launch_counts = _build.reset_launch_counts
 launch_counts = _build.launch_counts
+
+INF = float("inf")
 
 
 def _use_kernel(impl: str | None, t: torch.Tensor) -> bool:
@@ -42,6 +46,44 @@ def pq_adc(codes: torch.Tensor, lut: torch.Tensor, *,
     if _use_kernel(impl, codes):
         return pq_adc_k.pq_adc(codes.contiguous(), lut.contiguous())
     return ref.pq_adc_ref(codes, lut)
+
+
+def l2_distance(q: torch.Tensor, x: torch.Tensor, *,
+                impl: str | None = None) -> torch.Tensor:
+    """(Q, d), (N, d) -> (Q, N) f32 squared L2, ``(|q|^2 - 2 q.x) + |x|^2``."""
+    if _use_kernel(impl, q):
+        return l2_distance_k.l2_distance(q, x)
+    return ref.l2_distance_ref(q, x)
+
+
+def page_gather_l2(pages: torch.Tensor, page_ids: torch.Tensor,
+                   q: torch.Tensor, *, impl: str | None = None) -> torch.Tensor:
+    """pages (P, cap, d) f32, page_ids (Q, b) >= 0, q (Q, d) f32 -> (Q, b,
+    cap) f32 squared L2 of each gathered page vector to its query."""
+    if _use_kernel(impl, pages):
+        return page_gather_k.page_gather_l2(
+            pages.contiguous(), page_ids.to(torch.int32).contiguous(),
+            q.contiguous())
+    return ref.page_gather_l2_ref(pages, page_ids, q)
+
+
+def delta_scan(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
+               k: int, *, mask: torch.Tensor | None = None,
+               impl: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force scan of the mutable index's in-memory delta tier.
+
+    q: (Q, d) f32 queries, vecs: (C, d) f32 delta rows, live: (C,) bool.
+    The distances go through ``l2_distance``; rows that are dead, or fail
+    the filter ``mask`` (C,) bool, score ``+inf``; the per-query ascending
+    top-k is a stable sort, lower row first on ties (``lax.top_k``'s
+    order). Returns (dists (Q, k) f32, slots (Q, k) int32 rows of
+    ``vecs``); non-finite entries mean fewer than k live rows.
+    """
+    d = l2_distance(q, vecs, impl=impl)
+    keep = live if mask is None else live & mask
+    d = torch.where(keep[None, :], d, INF)
+    vals, slots = torch.sort(d, dim=-1, stable=True)
+    return vals[:, :k], slots[:, :k].to(torch.int32)
 
 
 def page_scan(recs, page_ids, q, lut, *, capacity: int, dim: int, rp: int,

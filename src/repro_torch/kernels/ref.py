@@ -34,6 +34,37 @@ def hamming_ref(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
     return pc.sum(-1).to(torch.int32)
 
 
+def l2_distance_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances. q: (Q, d), x: (N, d) -> (Q, N) f32.
+
+    The expanded form of ``repro.kernels.ref.l2_distance_ref`` in its
+    evaluation order, ``(|q|^2 - 2 q.x) + |x|^2``. It is not exact at zero:
+    a vector's distance to itself comes out a few ulps of its squared norm
+    away from 0, and can be negative (ROADMAP C1). The port keeps that form
+    so the delta tier's top-k order matches the reference's.
+    """
+    q = q.to(torch.float32)
+    x = x.to(torch.float32)
+    return (
+        (q * q).sum(-1)[:, None]
+        - 2.0 * q @ x.T
+        + (x * x).sum(-1)[None, :]
+    )
+
+
+def page_gather_l2_ref(pages: torch.Tensor, page_ids: torch.Tensor,
+                       q: torch.Tensor) -> torch.Tensor:
+    """Gather page vectors and score them against each query.
+
+    pages: (P, cap, d) f32, page_ids: (Q, b) int (>= 0), q: (Q, d)
+    -> (Q, b, cap) squared L2 distances, in the difference form
+    ``sum((x - q)^2)``.
+    """
+    gathered = pages[page_ids.to(torch.int64)].to(torch.float32)
+    diff = gathered - q.to(torch.float32)[:, None, None, :]
+    return (diff * diff).sum(-1)
+
+
 def pq_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """ADC distance. codes: (Q, N, M) uint8, lut: (Q, M, K) f32 -> (Q, N)
     f32, the sum over subspaces j of ``lut[q, j, codes[q, n, j]]``."""

@@ -9,7 +9,9 @@ page-scan inputs below are shared with ``test_torch_kernels.py``):
 Tolerance for the float kernels: rtol 1e-5, atol 1e-4, because the kernel
 sums in another order than the plain version; ``hamming`` is exact, and so
 is a staged record against the same record read by page id (one device
-function scores both).
+function scores both). ``l2_distance`` computes the expanded form
+``(|q|^2 - 2 q.x) + |x|^2``, whose rounding error scales with the norms:
+it is held to rtol 1e-5 and atol 1e-6 (max|q|^2 + max|x|^2).
 """
 import numpy as np
 import pytest
@@ -39,6 +41,28 @@ def page_inputs(p, cap, d, rp, m, b, nq=3):
     q = rng.standard_normal((nq, d)).astype(np.float32)
     lut = rng.standard_normal((nq, m, 256)).astype(np.float32)
     return recs, ids, q, lut
+
+
+# (queries, vectors, dim) for l2_distance: edge tiles on both axes, d below,
+# at and above one 32-wide slab, and the delta scan's d = 128
+L2_CASES = [(3, 5, 7), (70, 130, 32), (64, 64, 128), (33, 257, 200)]
+
+
+def l2_inputs(nq, n, d):
+    """Clustered-looking (Q, d) queries and (N, d) vectors from one seed,
+    with query 0 equal to vector 0 (a self-match)."""
+    rng = np.random.default_rng(nq * 1000 + n + d)
+    center = rng.standard_normal(d).astype(np.float32)
+    x = (center + 0.3 * rng.standard_normal((n, d))).astype(np.float32)
+    q = (center + 0.3 * rng.standard_normal((nq, d))).astype(np.float32)
+    q[0] = x[0]
+    return q, x
+
+
+def l2_atol(q, x) -> float:
+    """The expanded form's tolerance: 1e-6 (max|q|^2 + max|x|^2)."""
+    q, x = (np.asarray(a, np.float64) for a in (q, x))
+    return 1e-6 * float((q * q).sum(-1).max() + (x * x).sum(-1).max())
 
 
 @pytest.fixture
@@ -162,3 +186,96 @@ def test_hamming_kernel_matches_plain_exactly(cuda):
         c = torch.as_tensor(rng.integers(-2**31, 2**31, (s, w)).astype(np.int32)).to(cuda)
         qc = torch.as_tensor(rng.integers(-2**31, 2**31, (nq, w)).astype(np.int32)).to(cuda)
         assert torch.equal(ops.hamming(c, qc), ops.hamming(c, qc, impl="plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,d", L2_CASES + [(1000, 4096, 128)])
+def test_l2_distance_kernel_matches_plain(cuda, nq, n, d):
+    q, x = (torch.as_tensor(a).to(cuda) for a in l2_inputs(nq, n, d))
+    before = ops.launch_counts()["l2_distance"]
+    got = ops.l2_distance(q, x)
+    assert ops.launch_counts()["l2_distance"] == before + 1
+    want = ops.l2_distance(q, x, impl="plain")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=l2_atol(q.cpu(), x.cpu()))
+    assert abs(float(got[0, 0])) <= l2_atol(q.cpu(), x.cpu())
+    # a bf16 caller is cast to f32 in the wrapper
+    got16 = ops.l2_distance(q.bfloat16(), x.bfloat16())
+    want16 = ops.l2_distance(q.bfloat16().float(), x.bfloat16().float(),
+                             impl="plain")
+    torch.testing.assert_close(got16, want16, rtol=1e-5,
+                               atol=l2_atol(q.cpu(), x.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,cap,d,b", [(7, 4, 16, 3), (1667, 6, 128, 5),
+                                       (5, 3, 200, 4), (4, 30, 384, 2)])
+def test_page_gather_l2_kernel_matches_plain(cuda, p, cap, d, b):
+    rng = np.random.default_rng(p + cap + d)
+    pages = torch.as_tensor(rng.standard_normal((p, cap, d)).astype(np.float32)).to(cuda)
+    ids = torch.as_tensor(rng.integers(0, p, (64, b)).astype(np.int32)).to(cuda)
+    q = torch.as_tensor(rng.standard_normal((64, d)).astype(np.float32)).to(cuda)
+    before = ops.launch_counts()["page_gather_l2"]
+    got = ops.page_gather_l2(pages, ids, q)
+    assert ops.launch_counts()["page_gather_l2"] == before + 1
+    torch.testing.assert_close(got, ops.page_gather_l2(pages, ids, q, impl="plain"),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_page_gather_l2_kernel_equals_page_scan_members(cuda):
+    """On the same vectors the two kernels run the same per-member sum."""
+    rng = np.random.default_rng(2)
+    vecs = rng.standard_normal((50, 6, 128)).astype(np.float32)
+    codes = rng.integers(0, 256, (50, 48, 16)).astype(np.uint8)
+    recs = torch.as_tensor(pack_page_records(vecs, codes)).to(cuda)
+    ids = torch.as_tensor(rng.integers(0, 50, (64, 5)).astype(np.int32)).to(cuda)
+    q = torch.as_tensor(rng.standard_normal((64, 128)).astype(np.float32)).to(cuda)
+    md, _ = ops.page_scan(recs, ids, q, None, capacity=6, dim=128, rp=48,
+                          compute_adc=False)
+    got = ops.page_gather_l2(torch.as_tensor(vecs).to(cuda), ids, q)
+    torch.testing.assert_close(got, md, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_delta_scan_kernel_matches_plain(cuda):
+    q, x = (torch.as_tensor(a).to(cuda) for a in l2_inputs(200, 4096, 128))
+    rng = np.random.default_rng(4)
+    live = torch.as_tensor(rng.random(4096) < 0.5).to(cuda)
+    mask = torch.as_tensor(rng.random(4096) < 0.5).to(cuda)
+    for m in (None, mask):
+        d, s = ops.delta_scan(q, x, live, 10, mask=m)
+        dp, sp = ops.delta_scan(q, x, live, 10, mask=m, impl="plain")
+        torch.testing.assert_close(d, dp, rtol=1e-5, atol=l2_atol(q.cpu(), x.cpu()))
+        assert (s == sp).all(1).float().mean() >= 0.99
+        keep = live if m is None else live & m
+        assert keep[s.long()].all()
+
+
+@pytest.mark.cuda
+def test_mutable_index_on_the_card(cuda, tmp_path):
+    """Insert, delete, search (kernels and plain versions), save and load of
+    a mutable index on the card; the delta scan goes through l2_distance."""
+    from repro_torch.core import (MemoryMode, MutableIndex, PageANNConfig,
+                                  PageANNIndex)
+    from repro_torch.data.pipeline import clustered_vectors, query_vectors
+
+    x = clustered_vectors(700, 32, num_clusters=8, seed=0)
+    q = query_vectors(x, 64, seed=1)
+    cfg = PageANNConfig(dim=32, graph_degree=12, build_beam=24, build_rounds=1,
+                        pq_subspaces=8, lsh_sample=256, lsh_entries=8,
+                        beam_width=48, max_hops=48, memory_mode=MemoryMode.HYBRID)
+    m = MutableIndex(PageANNIndex.build(x[:600], cfg, device=cuda),
+                     auto_compact=False)
+    m.insert(x[600:], ids=np.arange(600, 700))
+    m.delete(np.arange(0, 30))
+    ops.reset_launch_counts()
+    got = m.search(q, k=10)
+    assert ops.launch_counts()["l2_distance"] == 1
+    plain = m.search(q, k=10, impl="plain")
+    assert (got.ids == plain.ids).all(1).mean() >= 0.95
+    assert not np.isin(got.ids, np.arange(30)).any()
+    m.save(str(tmp_path / "idx.mutable"))
+    loaded = MutableIndex.load(str(tmp_path / "idx.mutable"), device=cuda)
+    for field in got._fields:
+        np.testing.assert_array_equal(getattr(loaded.search(q, k=10), field),
+                                      getattr(got, field))

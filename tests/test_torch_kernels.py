@@ -16,19 +16,25 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import record_layout as jlayout
 from repro.kernels.hamming import hamming as pallas_hamming
+from repro.kernels.l2dist import l2_distance as pallas_l2_distance
+from repro.kernels.page_gather import page_gather_l2 as pallas_page_gather_l2
 from repro.kernels.page_scan import page_scan as pallas_page_scan
 from repro.kernels.page_scan import page_scan_recs as pallas_page_scan_recs
 from repro.kernels.pq_adc import pq_adc as pallas_pq_adc
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import hamming as hamming_k
+from repro_torch.kernels import l2_distance as l2_distance_k
+from repro_torch.kernels import page_gather as page_gather_k
 from repro_torch.kernels import page_scan as page_scan_k
 from repro_torch.kernels import pq_adc as pq_adc_k
 from repro_torch.kernels import record_layout as tlayout
 from repro_torch.kernels import ref as tref
-from test_torch_cuda import PAGE_CASES, page_inputs as _page_inputs
+from test_torch_cuda import L2_CASES, PAGE_CASES, l2_atol, l2_inputs
+from test_torch_cuda import page_inputs as _page_inputs
 
 # six test workers share the host's cores; the port's small tensors gain
 # nothing from more intra-op threads than one
@@ -149,6 +155,97 @@ def test_hamming_plain_matches_jax_ref_and_pallas_exactly(s, w, nq):
             out[i], np.asarray(pallas_hamming(c, qc, interpret=True)))
 
 
+# ------------------------------------------------------------- l2_distance
+@pytest.mark.parametrize("nq,n,d", L2_CASES)
+def test_l2_distance_plain_matches_jax_ref_and_pallas(nq, n, d):
+    """The expanded form: within rtol 1e-5 and atol 1e-6 (max|q|^2 +
+    max|x|^2), since BLAS and XLA sum q.x in other orders (ROADMAP C1)."""
+    q, x = l2_inputs(nq, n, d)
+    out = ops.l2_distance(torch.as_tensor(q), torch.as_tensor(x)).numpy()
+    assert out.shape == (nq, n) and out.dtype == np.float32
+    tol = dict(rtol=1e-5, atol=l2_atol(q, x))
+    jq, jx = jnp.asarray(q), jnp.asarray(x)
+    np.testing.assert_allclose(out, np.asarray(jref.l2_distance_ref(jq, jx)), **tol)
+    np.testing.assert_allclose(
+        out, np.asarray(pallas_l2_distance(jq, jx, interpret=True)), **tol)
+    exact = ((q[:, None, :].astype(np.float64) - x[None]) ** 2).sum(-1)
+    np.testing.assert_allclose(out, exact, **tol)
+
+
+# ------------------------------------------------------------- page_gather_l2
+@pytest.mark.parametrize("p,cap,d,b", [(7, 4, 16, 3), (23, 6, 128, 5),
+                                       (5, 3, 200, 4)])
+def test_page_gather_l2_plain_matches_jax_ref_and_pallas(p, cap, d, b):
+    rng = np.random.default_rng(p + cap + d)
+    pages = rng.standard_normal((p, cap, d)).astype(np.float32)
+    ids = rng.integers(0, p, (3, b)).astype(np.int32)
+    q = rng.standard_normal((3, d)).astype(np.float32)
+    out = ops.page_gather_l2(torch.as_tensor(pages), torch.as_tensor(ids),
+                             torch.as_tensor(q)).numpy()
+    assert out.shape == (3, b, cap)
+    for i in range(3):
+        args = jnp.asarray(pages), jnp.asarray(ids[i]), jnp.asarray(q[i])
+        np.testing.assert_allclose(
+            out[i], np.asarray(jref.page_gather_l2_ref(*args)), **TOL)
+        np.testing.assert_allclose(
+            out[i], np.asarray(pallas_page_gather_l2(*args, interpret=True)),
+            **TOL)
+
+
+def test_page_gather_l2_equals_the_member_scores_of_page_scan():
+    """Both score sum((x - q)^2) over the same page vectors: page_scan reads
+    them out of the packed records, page_gather_l2 from (P, cap, d)."""
+    rng = np.random.default_rng(3)
+    vecs = rng.standard_normal((9, 6, 32)).astype(np.float32)
+    codes = rng.integers(0, 256, (9, 12, 4)).astype(np.uint8)
+    from repro_torch.core.layout import pack_page_records
+
+    recs = torch.as_tensor(pack_page_records(vecs, codes))
+    ids = torch.as_tensor(rng.integers(0, 9, (4, 5)).astype(np.int32))
+    q = torch.as_tensor(rng.standard_normal((4, 32)).astype(np.float32))
+    md, _ = ops.page_scan(recs, ids, q, None, capacity=6, dim=32, rp=12,
+                          compute_adc=False)
+    got = ops.page_gather_l2(torch.as_tensor(vecs), ids, q)
+    torch.testing.assert_close(got, md, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------- delta_scan
+@pytest.mark.parametrize("k", [1, 7, 40])
+@pytest.mark.parametrize("masked", [False, True], ids=["live", "filtered"])
+def test_delta_scan_matches_jax_ops_ref_and_pallas(k, masked):
+    """The L2 kernel path, dead and filtered rows at +inf, the ascending
+    top-k; ids equal, distances within the expanded form's tolerance."""
+    rng = np.random.default_rng(k)
+    c, d = 64, 32
+    vecs = rng.standard_normal((c, d)).astype(np.float32)
+    vecs[40:] = 0.0                             # padding rows past the count
+    live = np.zeros(c, bool)
+    live[:40] = rng.random(40) < 0.8
+    q = np.concatenate([rng.standard_normal((5, d)).astype(np.float32),
+                        vecs[:2]])              # two self-matches
+    mask = (rng.random(c) < 0.6) if masked else None
+    dists, slots = ops.delta_scan(
+        torch.as_tensor(q), torch.as_tensor(vecs), torch.as_tensor(live), k,
+        mask=None if mask is None else torch.as_tensor(mask))
+    assert dists.shape == slots.shape == (7, k) and slots.dtype == torch.int32
+    keep = live if mask is None else live & mask
+    assert (np.isinf(dists.numpy()).sum(1) == max(0, k - keep.sum())).all()
+    jm = None if mask is None else jnp.asarray(mask)
+    for impl in ("ref", "pallas"):
+        want_d, want_s = jops.delta_scan(
+            jnp.asarray(q), jnp.asarray(vecs), jnp.asarray(live), k,
+            mask=jm, impl=impl, interpret=True)
+        fin = np.isfinite(np.asarray(want_d))
+        np.testing.assert_array_equal(np.isfinite(dists.numpy()), fin)
+        np.testing.assert_array_equal(slots.numpy()[fin], np.asarray(want_s)[fin])
+        np.testing.assert_allclose(dists.numpy(), np.asarray(want_d), rtol=1e-5,
+                                   atol=l2_atol(q, vecs))
+    # +inf rows tie: stable order keeps them in row order, as lax.top_k does
+    for row in range(7):
+        inf_slots = slots[row][torch.isinf(dists[row])]
+        assert torch.equal(inf_slots, torch.sort(inf_slots).values)
+
+
 # ------------------------------------------------------------- dispatch
 def test_record_layout_is_the_reference_geometry():
     for dim in (8, 16, 24, 32, 100, 128, 129, 200, 384):
@@ -176,12 +273,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.pq_adc(torch.zeros((1, 3, 4), dtype=torch.uint8), t[3][:1])
     ops.hamming(torch.zeros((5, 2), dtype=torch.int32),
                 torch.zeros((1, 2), dtype=torch.int32))
+    ops.l2_distance(t[2], t[2])
+    ops.page_gather_l2(torch.zeros((2, 4, 16)), t[1] % 2, t[2])
+    ops.delta_scan(t[2], t[2], torch.ones(3, dtype=torch.bool), 2)
     counts = ops.launch_counts()
     assert set(counts) == {
         "page_scan", "page_scan_members", "page_scan_masked",
         "page_scan_members_masked", "page_scan_recs", "page_scan_recs_members",
         "page_scan_recs_masked", "page_scan_recs_members_masked", "pq_adc",
-        "hamming"}
+        "hamming", "l2_distance", "page_gather_l2"}
     assert not any(counts.values())
 
 
@@ -203,6 +303,10 @@ def test_kernel_route_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         hamming_k.hamming(torch.zeros((5, 2), dtype=torch.int32),
                           torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        l2_distance_k.l2_distance(q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        page_gather_k.page_gather_l2(torch.zeros((2, 4, 16)), ids % 2, q)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

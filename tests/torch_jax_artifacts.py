@@ -63,3 +63,44 @@ def metadata_artifact(mode_value: str):
     directory = f"{tmp.name}/idx.{mode_value}"
     index.save(directory)
     return index, directory
+
+
+# ------------------------------------------------------------ mutable index
+# the size of tests/test_delta.py: a base of the first N_BASE of N_DELTA
+# vectors, the rest inserted through the mutable index
+N_DELTA, N_BASE = 1000, 800
+DELTA_LANGS = ("en", "de", "fr")   # the base's tag values; inserts add "es"
+
+
+@functools.cache
+def delta_dataset():
+    """(x, q, metadata columns) of the mutable-index tests. ``q`` is ten
+    queries near data points plus three inserted vectors themselves (exact
+    self-matches in the delta tier). Every fourth inserted row carries the
+    tag value "es", which the base has never seen."""
+    x = clustered_vectors(N_DELTA, D, num_clusters=16, seed=0)
+    q = np.concatenate([query_vectors(x, 10, seed=1), x[[805, 930, 990]]])
+    rng = np.random.default_rng(11)
+    lang = rng.choice(DELTA_LANGS, N_DELTA).tolist()
+    for i in range(N_BASE, N_DELTA, 4):
+        lang[i] = "es"
+    meta = {"lang": lang, "score": rng.uniform(0.0, 1.0, N_DELTA).tolist()}
+    return x, q, meta
+
+
+@functools.cache
+def delta_base_artifact(mode_value: str):
+    """(JAX base index over the first N_BASE vectors, its saved directory)
+    for one MemoryMode, built with the metadata schema."""
+    x, _, meta = delta_dataset()
+    kw = cfg_kwargs(mode_value)
+    kw["memory_mode"] = JMode(mode_value)
+    index = JIndex.build(
+        x[:N_BASE], JConfig(**kw),
+        schema=JSchema(tags=TAGS, numerics=NUMERICS),
+        metadata={f: col[:N_BASE] for f, col in meta.items()})
+    tmp = tempfile.TemporaryDirectory(prefix="repro_torch_delta_")
+    _DIRS.append(tmp)
+    directory = f"{tmp.name}/base.{mode_value}"
+    index.save(directory)
+    return index, directory
