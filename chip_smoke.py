@@ -11,7 +11,8 @@ version. Phases, one JSON line each:
   build     compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels   each kernel vs its plain version at the main path's shapes
             (and both record packings, d = 32 / 128 / 200), with times;
-            the masked (filtered) and staged (streamed) page-scan variants
+            the masked (filtered) and staged (streamed) page-scan variants,
+            the four ADC ones also at Q = 64
   sift1m    the kernels on SIFT1M-size state: 1,000,000 vectors at d = 128
             in HYBRID pages (about 2 GB of records on the device), and one
             streamed hop with 25% of those pages on the card and the rest
@@ -297,6 +298,10 @@ def _page_scan_case(s: Smoke, recs, ids, q, lut, *, cap, dim, rp, m,
             raise AssertionError(f"{name}: a staged record scores differently "
                                  "from the same record read by page id")
     used_m = m if adc else 0
+    plan = page_scan_k.launch_plan(
+        nq, b, capacity=cap, dim=dim, rp=rp, m=used_m,
+        k=lut.shape[2] if adc else 0, compute_adc=adc,
+        sms=torch.cuda.get_device_properties(recs.device).multi_processor_count)
     # each record's members (cap x dim floats) and, with ADC, the rp
     # columns of its M code rows, not the rows' padding lanes: once per
     # distinct page read by id, once per staged record (each is its own
@@ -310,7 +315,7 @@ def _page_scan_case(s: Smoke, recs, ids, q, lut, *, cap, dim, rp, m,
     ops_ = nq * b * (cap * dim * 3 + rp * used_m)
     return dict(
         name=name, dim=dim, q=nq, b=b, capacity=cap, max_abs_err=err,
-        ms=s.time_ms(kernel, reps),
+        plan=plan._asdict(), ms=s.time_ms(kernel, reps),
         call_ms=s.call_ms(call, reps),
         plain_ms=s.time_ms(lambda: call("plain"), max(3, reps // 5)),
         **_bound(bytes_, ops_),
@@ -424,15 +429,16 @@ def _page_gather_case(s: Smoke, recs, ids, q, *, cap: int) -> dict:
                     ops.page_gather_l2(pages, ids, q, impl="plain"))
     md, _ = ops.page_scan(recs, ids, q, None, capacity=cap, dim=q.shape[1],
                           rp=1, compute_adc=False)
-    torch.testing.assert_close(got, md, rtol=RTOL, atol=ATOL)
+    # one per-member reduction order in both kernels
+    if not torch.equal(got, md):
+        raise AssertionError("page_gather_l2: member distances differ from "
+                             "page_scan's")
     nq, b = ids.shape
     distinct = int(torch.unique(ids).numel())
     d = q.shape[1]
     return dict(
         name="page_gather_l2", q=nq, b=b, capacity=cap, dim=d,
         launches=launches, max_abs_err=err,
-        page_scan_max_abs_diff=float((got - md).abs().max()),
-        equals_page_scan_bitwise=bool(torch.equal(got, md)),
         ms=s.time_ms(lambda: ops.page_gather_l2(pages, ids, q), 50),
         call_ms=s.call_ms(lambda: ops.page_gather_l2(pages, ids, q), 50),
         plain_ms=s.time_ms(lambda: ops.page_gather_l2(pages, ids, q,
@@ -497,6 +503,15 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
                                       reps=50, masked=masked, staged=staged)
                 s.rows[row["name"]] = row
                 cases.append(row)
+        if cfg is cfg_hybrid:
+            # the ADC variants at Q = 64: the late hops of a batch whose
+            # finished lanes are frozen, and most hops of a filtered search
+            for masked, staged in ((False, False), (True, False),
+                                   (False, True), (True, True)):
+                cases.append(_page_scan_case(
+                    s, recs, ids[:64], q[:64], lut[:64], cap=cap, dim=cfg.dim,
+                    rp=rp, m=m, adc=adc, reps=50, masked=masked,
+                    staged=staged))
         del recs
 
     m_mem = 2 * cfg_hybrid.pq_subspaces

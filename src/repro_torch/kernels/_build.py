@@ -35,7 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
-    "pageann_page_scan": [_P] * 7 + [_I] * 12 + [_P],
+    "pageann_page_scan": [_P] * 7 + [_I] * 17 + [_P],
     "pageann_pq_adc": [_P] * 3 + [_I] * 4 + [_P],
     "pageann_hamming": [_P] * 3 + [_I] * 3 + [_P],
     "pageann_l2_distance": [_P] * 3 + [_I] * 3 + [_P],

@@ -20,26 +20,50 @@
 // Bound on the H100: bytes. Each (query, page) reads its record's member rows
 // (and M code rows with ADC) once and does ~3 flops per loaded float, far
 // below the card's flop/byte balance; the least time is the bytes read over
-// 3.35 TB/s.
+// 3.35 TB/s, and with ADC the query's (M, K) table (16 KB at M = 16,
+// K = 256) is the largest single input.
 //
-// Design: one block per (query, page); the block loads its own page id (no
-// scalar prefetch on a GPU). It copies the member rows into shared memory
-// with coalesced 16-byte loads, then one warp per member sums the squared
-// differences and reduces with shuffles. The TPU kernel scored neighbours as
-// a one-hot contraction on the matrix unit (page_scan.py:78-91), which only
-// exists because the TPU gathers badly; here the query's (M, K) table is
-// staged in shared memory and one thread per neighbour column gathers and
-// sums M entries. The members-only variants never touch the code rows:
-// MEM_ALL records have none.
+// What bounds a scan with one block per (query, page): every block stages
+// its query's whole table, so a hop moves b times the table bytes the bound
+// counts (82 MB at Q = 1,000, b = 5, against 16 MB); the table, copied with
+// scalar loads, fills most of the block's shared memory; and each neighbour
+// column walks M dependent global loads, one after the other.
 //
+// Design. The TPU kernel scored neighbours as a one-hot contraction on the
+// matrix unit (page_scan.py:78-91), which only exists because the TPU gathers
+// badly; here the table sits in shared memory and one thread per neighbour
+// column gathers and sums M entries.
+//   - ADC variants: one block per query owns its b pages (the launch plan
+//     splits them over a few blocks when there are too few queries to fill
+//     the SMs). The block stages the query vector and the table once, and in
+//     the same step the member rows of a chunk of its pages, all with 16-byte
+//     cp.async, so the query's pages are in flight together. Pages beyond
+//     one chunk's shared memory are scored chunk after chunk. Tasks are
+//     stepped to, never divided out: these blocks are short, and integer
+//     division in the copy and task loops cost a members-only scan a third
+//     of its time on the H100.
+//   - Member L2: one warp per (page, member) of the chunk: lane-strided FMAs,
+//     then an xor-shuffle tree (page_gather.cu sums in the same order). The
+//     mask is applied after the warp sum.
+//   - Neighbour ADC: one thread per (page, column). The M code floats of the
+//     column are loaded together (when M is 4, 8 or 16 the first column's
+//     loads are issued before the block waits for its staging copies, so the
+//     two overlap; any other M loads in groups of 4), then the table entries
+//     are summed in the order s = 0 .. M-1. The ADC is never masked
+//     (traversal has to cross filtered-out regions).
+//   - Members-only variants have no table to share: one block per (query,
+//     page), fixed at compile time, so the chunk and page loops fold away.
+//     MEM_ALL records have no code rows.
 // All eight variants (ADC or members only, masked or not, page ids or a
-// staged batch) run one device function, score_record, on the record they
-// were handed: a staged record and a resident one go through the same
-// instructions in the same order, so the streamed search scores bit for bit
-// like the resident one. The mask is applied after the warp sum; the ADC
-// half is never masked (traversal has to cross filtered-out regions).
+// staged batch) run one kernel body; staging changes only where a record is
+// read from. So a staged record and a resident one go through the same
+// instructions in the same order, and the streamed search scores bit for bit
+// like the resident one; the chunking and the plan do not change any sum.
 //
-// Page ids outside [0, P) are clamped, as an XLA gather clamps them.
+// The launch plan (grid, threads, shared bytes, pages per block and per
+// chunk) is computed by the wrapper (kernels/page_scan.py, launch_plan) and
+// checked here. Page ids outside [0, P) are clamped, as an XLA gather clamps
+// them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,7 +72,14 @@
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 256;
+// Blocks of kMaxThreads that must fit on an SM (launch bounds, so a register
+// cap). A members-only block runs 128 threads and little work, so it needs
+// many blocks an SM: 8 caps it at 32 registers, 16 blocks of 128. An ADC
+// block keeps M codes a thread in flight: 4 caps it at 64 registers; a cap
+// of 40 (6 blocks) spilled them and ran 8-13% slower on the H100.
+constexpr int kAdcMinBlocks = 4;
+constexpr int kMembersMinBlocks = 8;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -56,28 +87,120 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Scores one record for one query. rec: the record in device memory; smem:
-// mrows * 128 + dim (+ m * k with ADC) floats; mask_row: cap floats or null.
-template <bool kAdc>
-__device__ __forceinline__ void score_record(
-    const float* __restrict__ rec, const float* __restrict__ qv,
-    const float* __restrict__ lut, const float* __restrict__ mask_row,
-    float* __restrict__ md_out, float* __restrict__ nd_out, float* smem,
-    int mrows, int m, int k, int cap, int dim, int rp) {
-  float* rec_s = smem;                  // mrows * 128
-  float* q_s = rec_s + mrows * kLanes;  // dim
-  float* lut_s = q_s + dim;             // m * k (ADC only)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
 
-  const float4* rec4 = reinterpret_cast<const float4*>(rec);
-  float4* rec_s4 = reinterpret_cast<float4*>(rec_s);
-  for (int i = threadIdx.x; i < mrows * (kLanes / 4); i += blockDim.x)
-    rec_s4[i] = rec4[i];
-  for (int i = threadIdx.x; i < dim; i += blockDim.x) q_s[i] = qv[i];
-  if (kAdc) {
-    for (int i = threadIdx.x; i < m * k; i += blockDim.x) lut_s[i] = lut[i];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// n floats from device to shared memory by the whole block: 16-byte
+// cp.async when both ends are aligned and n is a multiple of 4, else plain
+// loads. Visible to the block after cp_async_wait_all and __syncthreads.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
+  const bool vec = (((reinterpret_cast<uintptr_t>(src) |
+                      reinterpret_cast<uintptr_t>(dst)) & 15) == 0) &&
+                   (n & 3) == 0;
+  if (vec) {
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
-  __syncthreads();
+}
 
+// The record of (query, slot) item: from the page store by clamped page id,
+// or item itself in a staged batch.
+template <bool kStaged>
+__device__ __forceinline__ const float* record(
+    const float* __restrict__ recs, const int32_t* __restrict__ page_ids,
+    size_t item, int num_pages, int rows) {
+  size_t r = item;
+  if (!kStaged) r = min(max(__ldg(page_ids + item), 0), num_pages - 1);
+  return recs + r * rows * kLanes;
+}
+
+// One member's squared L2 to the query, summed by the whole warp.
+__device__ __forceinline__ float member_l2(const float* v, const float* q_s,
+                                           int dim, int lane) {
+  float acc = 0.f;
+  for (int c = lane; c < dim; c += 32) {
+    const float t = v[c] - q_s[c];
+    acc = fmaf(t, t, acc);
+  }
+  return warp_sum(acc);
+}
+
+// Adds the table entry of one code (a float, cast and clamped to [0, K)).
+__device__ __forceinline__ float lookup(float acc, float code_f,
+                                        const float* lut_row, int k) {
+  const int code = min(max(static_cast<int>(code_f), 0), k - 1);
+  return acc + lut_row[code];
+}
+
+// Code row s of a record holds subspace s of every neighbour, so the kM
+// codes of column col are kLanes floats apart; consecutive threads read
+// consecutive columns.
+template <int kM>
+__device__ __forceinline__ void load_codes(float (&c)[kM], const float* col) {
+#pragma unroll
+  for (int s = 0; s < kM; ++s) c[s] = __ldg(col + s * kLanes);
+}
+
+template <int kM>
+__device__ __forceinline__ float adc_sum(const float (&c)[kM],
+                                         const float* lut_s, int k) {
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < kM; ++s) acc = lookup(acc, c[s], lut_s + s * k, k);
+  return acc;
+}
+
+// Any M: loads in groups of 4, sums in the same order s = 0 .. M-1.
+__device__ __forceinline__ float adc_sum_any(const float* col,
+                                             const float* lut_s, int m,
+                                             int k) {
+  float acc = 0.f;
+  for (int s0 = 0; s0 < m; s0 += 4) {
+    float c[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      c[u] = s0 + u < m ? __ldg(col + (s0 + u) * kLanes) : 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (s0 + u < m) acc = lookup(acc, c[u], lut_s + (s0 + u) * k, k);
+  }
+  return acc;
+}
+
+// kM: the number of code rows when it is 4, 8 or 16 (unrolled), else 0.
+template <bool kAdc, bool kMask, bool kStaged, int kM>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  kAdc ? kAdcMinBlocks : kMembersMinBlocks)
+    page_scan_kernel(
+    const float* __restrict__ recs, const int32_t* __restrict__ page_ids,
+    const float* __restrict__ q, const float* __restrict__ lut,
+    const float* __restrict__ mask, float* __restrict__ md,
+    float* __restrict__ nd, int b, int groups, int ppb, int ppc,
+    int num_pages, int rows, int mrows, int m, int k, int cap, int dim,
+    int rp) {
+  extern __shared__ float4 smem4[];
+  if constexpr (!kAdc) {
+    // members only: one page a block, known here, so the chunk and page
+    // loops below fold away
+    groups = b;
+    ppb = ppc = 1;
+  }
+  const int rec_floats = mrows * kLanes;
+  float* rec_s = reinterpret_cast<float*>(smem4);     // ppc * rec_floats
+  float* lut_s = rec_s + ppc * rec_floats;            // m * k (ADC only)
+  float* q_s = lut_s + (kAdc ? m * k : 0);            // dim
+  const int qi = blockIdx.x / groups;  // groups: blocks per query
+  const int first = (blockIdx.x - qi * groups) * ppb;
+  const int last = min(b, first + ppb);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
@@ -85,128 +208,154 @@ __device__ __forceinline__ void score_record(
   // ceil(d/128) rows
   const int vpr = dim <= kLanes ? kLanes / dim : 1;
   const int rpv = dim <= kLanes ? 1 : (dim + kLanes - 1) / kLanes;
-  for (int i = warp; i < cap; i += nwarps) {
-    const float* v = rec_s + (i / vpr) * rpv * kLanes + (i % vpr) * dim;
-    float acc = 0.f;
-    for (int c = lane; c < dim; c += 32) {
-      const float t = v[c] - q_s[c];
-      acc = fmaf(t, t, acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      // NaN masks fail the test, as jnp.where(mask > 0, ...) does
-      if (mask_row != nullptr && !(mask_row[i] > 0.f)) acc = INFINITY;
-      md_out[i] = acc;
-    }
-  }
 
-  if (kAdc) {
-    // code row s of the record holds subspace s of every neighbour; thread
-    // j walks column j, so each row is read by consecutive threads
-    const float* codes = rec + static_cast<size_t>(mrows) * kLanes;
-    for (int j = threadIdx.x; j < rp; j += blockDim.x) {
-      float acc = 0.f;
-      for (int s = 0; s < m; ++s) {
-        int code = static_cast<int>(codes[s * kLanes + j]);
-        code = min(max(code, 0), k - 1);
-        acc += lut_s[s * k + code];
+  stage(q_s, q + static_cast<size_t>(qi) * dim, dim);
+  if (kAdc) stage(lut_s, lut + static_cast<size_t>(qi) * m * k, m * k);
+  // the first (page, member) of this warp and (page, column) of this thread
+  // in a chunk; later ones are stepped to, not divided out
+  int mem_p0 = 0, mem_i0 = warp;
+  for (; mem_i0 >= cap; mem_i0 -= cap) ++mem_p0;
+  const int col_p0 = kAdc ? threadIdx.x / rp : 0;
+  const int col_j0 = kAdc ? threadIdx.x - col_p0 * rp : 0;
+  for (int c0 = first; c0 < last; c0 += ppc) {
+    const int n = kAdc ? min(ppc, last - c0) : 1;
+    const size_t item0 = static_cast<size_t>(qi) * b + c0;
+    if (c0 > first) __syncthreads();  // the last chunk's rows are consumed
+    for (int p = 0; p < n; ++p) {
+      const float* rec = record<kStaged>(recs, page_ids, item0 + p,
+                                         num_pages, rows);
+      float* dst = rec_s + p * rec_floats;
+      for (int i = 4 * threadIdx.x; i < rec_floats; i += 4 * blockDim.x)
+        cp_async16(dst + i, rec + i);
+    }
+    float codes[kM > 0 ? kM : 1];
+    if constexpr (kAdc && kM > 0) {
+      if (col_p0 < n)
+        load_codes<kM>(codes, record<kStaged>(recs, page_ids, item0 + col_p0,
+                                              num_pages, rows) +
+                                  rec_floats + col_j0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int p = mem_p0, i = mem_i0; p < n;) {
+      const float* v = rec_s + p * rec_floats + (i / vpr) * rpv * kLanes +
+                       (i % vpr) * dim;
+      float acc = member_l2(v, q_s, dim, lane);
+      if (lane == 0) {
+        const size_t out = (item0 + p) * cap + i;
+        // NaN masks fail the test, as jnp.where(mask > 0, ...) does
+        if (kMask && !(mask[out] > 0.f)) acc = INFINITY;
+        md[out] = acc;
       }
-      nd_out[j] = acc;
+      for (i += nwarps; i >= cap; i -= cap) ++p;
+    }
+
+    if constexpr (kAdc) {
+      bool prefetched = kM > 0;
+      for (int p = col_p0, j = col_j0; p < n;) {
+        const float* col = record<kStaged>(recs, page_ids, item0 + p,
+                                           num_pages, rows) +
+                           rec_floats + j;
+        float acc;
+        if constexpr (kM > 0) {
+          if (!prefetched) load_codes<kM>(codes, col);
+          acc = adc_sum<kM>(codes, lut_s, k);
+        } else {
+          acc = adc_sum_any(col, lut_s, m, k);
+        }
+        nd[(item0 + p) * rp + j] = acc;
+        prefetched = false;
+        for (j += blockDim.x; j >= rp; j -= rp) ++p;
+      }
     }
   }
 }
 
-template <bool kAdc, bool kMask, bool kStaged>
-__global__ void __launch_bounds__(kThreads) page_scan_kernel(
-    const float* __restrict__ recs, const int32_t* __restrict__ page_ids,
-    const float* __restrict__ q, const float* __restrict__ lut,
-    const float* __restrict__ mask, float* __restrict__ md,
-    float* __restrict__ nd, int b, int num_pages, int rows, int mrows, int m,
-    int k, int cap, int dim, int rp) {
-  extern __shared__ float4 smem4[];
-  const int item = blockIdx.x;  // query * b + slot
-  const int qi = item / b;
-  int rec_idx = item;
-  if (!kStaged) rec_idx = min(max(page_ids[item], 0), num_pages - 1);
-  score_record<kAdc>(
-      recs + static_cast<size_t>(rec_idx) * rows * kLanes,
-      q + static_cast<size_t>(qi) * dim,
-      kAdc ? lut + static_cast<size_t>(qi) * m * k : nullptr,
-      kMask ? mask + static_cast<size_t>(item) * cap : nullptr,
-      md + static_cast<size_t>(item) * cap,
-      kAdc ? nd + static_cast<size_t>(item) * rp : nullptr,
-      reinterpret_cast<float*>(smem4), mrows, m, k, cap, dim, rp);
-}
+struct Args {
+  const float* recs;
+  const int32_t* page_ids;
+  const float* q;
+  const float* lut;
+  const float* mask;
+  float* md;
+  float* nd;
+  int b, groups, ppb, ppc, num_pages, rows, mrows, m, k, cap, dim, rp;
+  int grid, threads, smem;
+};
 
-template <bool kAdc, bool kMask, bool kStaged>
-cudaError_t launch(const float* recs, const int32_t* page_ids, const float* q,
-                   const float* lut, const float* mask, float* md, float* nd,
-                   int nq, int b, int num_pages, int rows, int mrows, int m,
-                   int k, int cap, int dim, int rp, size_t smem,
-                   cudaStream_t stream) {
-  auto kernel = page_scan_kernel<kAdc, kMask, kStaged>;
-  if (smem > 48 * 1024) {
+template <bool kAdc, bool kMask, bool kStaged, int kM>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  auto kernel = page_scan_kernel<kAdc, kMask, kStaged, kM>;
+  if (a.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<nq * b, kThreads, smem, stream>>>(recs, page_ids, q, lut, mask, md,
-                                             nd, b, num_pages, rows, mrows, m,
-                                             k, cap, dim, rp);
+  kernel<<<a.grid, a.threads, a.smem, stream>>>(
+      a.recs, a.page_ids, a.q, a.lut, a.mask, a.md, a.nd, a.b, a.groups,
+      a.ppb, a.ppc, a.num_pages, a.rows, a.mrows, a.m, a.k, a.cap, a.dim,
+      a.rp);
   return cudaGetLastError();
 }
 
+template <bool kAdc, bool kMask, bool kStaged>
+cudaError_t launch_m(const Args& a, cudaStream_t s) {
+  if constexpr (!kAdc) {
+    return launch<kAdc, kMask, kStaged, 0>(a, s);
+  } else {
+    switch (a.m) {
+      case 4: return launch<kAdc, kMask, kStaged, 4>(a, s);
+      case 8: return launch<kAdc, kMask, kStaged, 8>(a, s);
+      case 16: return launch<kAdc, kMask, kStaged, 16>(a, s);
+      default: return launch<kAdc, kMask, kStaged, 0>(a, s);
+    }
+  }
+}
+
 template <bool kAdc, bool kMask>
-cudaError_t launch_by_source(int staged, const float* recs,
-                             const int32_t* page_ids, const float* q,
-                             const float* lut, const float* mask, float* md,
-                             float* nd, int nq, int b, int num_pages, int rows,
-                             int mrows, int m, int k, int cap, int dim, int rp,
-                             size_t smem, cudaStream_t s) {
-  return staged ? launch<kAdc, kMask, true>(recs, page_ids, q, lut, mask, md,
-                                            nd, nq, b, num_pages, rows, mrows,
-                                            m, k, cap, dim, rp, smem, s)
-                : launch<kAdc, kMask, false>(recs, page_ids, q, lut, mask, md,
-                                             nd, nq, b, num_pages, rows, mrows,
-                                             m, k, cap, dim, rp, smem, s);
+cudaError_t launch_src(int staged, const Args& a, cudaStream_t s) {
+  return staged ? launch_m<kAdc, kMask, true>(a, s)
+                : launch_m<kAdc, kMask, false>(a, s);
 }
 
 }  // namespace
 
 // mask == null: unmasked; staged != 0: recs is the (nq * b, rows, 128) staged
-// batch and page_ids is ignored (num_pages then counts its records).
+// batch and page_ids is ignored (num_pages then counts its records). grid,
+// threads, smem, pages_per_block and pages_per_chunk are the launch plan;
+// a plan the kernel cannot run returns cudaErrorInvalidValue.
 extern "C" int pageann_page_scan(const float* recs, const int32_t* page_ids,
                                  const float* q, const float* lut,
                                  const float* mask, float* md, float* nd,
                                  int nq, int b, int num_pages, int rows,
                                  int mrows, int m, int k, int cap, int dim,
                                  int rp, int compute_adc, int staged,
+                                 int grid, int threads, int smem,
+                                 int pages_per_block, int pages_per_chunk,
                                  void* stream) {
   if (nq == 0 || b == 0) return 0;
+  const int ppb = pages_per_block, ppc = pages_per_chunk;
+  const int groups = ppb > 0 ? (b + ppb - 1) / ppb : 0;
+  const long long floats = static_cast<long long>(ppc) * mrows * kLanes +
+                           (compute_adc ? static_cast<long long>(m) * k : 0) +
+                           dim;
+  if (ppb < 1 || ppc < 1 || ppc > ppb || (!compute_adc && ppb != 1) ||
+      grid != nq * groups || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      static_cast<long long>(smem) < floats * 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{recs, page_ids, q, lut, mask, md, nd, b, groups, ppb, ppc,
+               num_pages, rows, mrows, m, k, cap, dim, rp, grid, threads,
+               smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t floats = static_cast<size_t>(mrows) * kLanes + dim +
-                        (compute_adc ? static_cast<size_t>(m) * k : 0);
-  const size_t smem = floats * sizeof(float);
   cudaError_t err;
   if (compute_adc) {
-    err = mask ? launch_by_source<true, true>(staged, recs, page_ids, q, lut,
-                                              mask, md, nd, nq, b, num_pages,
-                                              rows, mrows, m, k, cap, dim, rp,
-                                              smem, s)
-               : launch_by_source<true, false>(staged, recs, page_ids, q, lut,
-                                               mask, md, nd, nq, b, num_pages,
-                                               rows, mrows, m, k, cap, dim, rp,
-                                               smem, s);
+    err = mask ? launch_src<true, true>(staged, a, s)
+               : launch_src<true, false>(staged, a, s);
   } else {
-    err = mask ? launch_by_source<false, true>(staged, recs, page_ids, q, lut,
-                                               mask, md, nd, nq, b, num_pages,
-                                               rows, mrows, m, k, cap, dim, rp,
-                                               smem, s)
-               : launch_by_source<false, false>(staged, recs, page_ids, q, lut,
-                                                mask, md, nd, nq, b, num_pages,
-                                                rows, mrows, m, k, cap, dim,
-                                                rp, smem, s);
+    err = mask ? launch_src<false, true>(staged, a, s)
+               : launch_src<false, false>(staged, a, s);
   }
   return static_cast<int>(err);
 }

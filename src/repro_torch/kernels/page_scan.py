@@ -4,15 +4,21 @@ Replaces ``src/repro/kernels/page_scan.py``: ``page_scan`` (the kernels
 ``_page_scan_kernel``, ``_page_scan_members_kernel`` and their masked
 twins) and ``page_scan_recs`` (the four ``_page_scan_recs_*`` kernels). The
 kernel is ``csrc/page_scan.cu``: bound by bytes on the H100 (each record
-row is read once for ~3 flops per float). One block per (query, page) loads
-its own page id (or takes its record from a staged batch), copies the
-member rows to shared memory with 16-byte loads, scores one member per
-warp, and gathers neighbour ADC sums from the query's table in shared
-memory instead of the TPU's one-hot matrix-unit contraction. Every variant
-runs the same per-record device function, so a staged record scores bit
-for bit like the same record read by page id.
+row is read once for ~3 flops per float, and with ADC the query's (M, K)
+table is the largest input). With ADC one block serves one query: it
+stages the query and its table once and the member rows of its pages
+together (16-byte ``cp.async``), scores one (page, member) per warp and
+one (page, neighbour column) per thread, gathering ADC sums from the table
+in shared memory instead of the TPU's one-hot matrix-unit contraction.
+Members-only scans keep one block per (query, page). ``launch_plan`` picks
+the grid, threads, shared memory and pages per block and per chunk; every
+variant runs the same kernel body, so a staged record scores bit for bit
+like the same record read by page id, whatever the plan.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +26,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import record_layout as rl
 
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one H100 block may use
+CHUNK_BYTES = 24 * 1024  # member rows one block stages at once
+NUM_SMS = 132            # streaming multiprocessors of an H100 SXM
+MAX_THREADS = 256        # the kernel's launch bound
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -27,9 +36,61 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"page_scan: {msg}")
 
 
+class LaunchPlan(NamedTuple):
+    grid: int             # blocks: queries x blocks per query
+    threads: int          # threads per block
+    smem_bytes: int       # dynamic shared memory per block
+    pages_per_block: int  # pages of one query that one block scores
+    pages_per_chunk: int  # pages whose member rows are in shared memory at once
+
+
+def launch_plan(nq: int, b: int, *, capacity: int, dim: int, rp: int, m: int,
+                k: int, compute_adc: bool, sms: int = NUM_SMS,
+                pages_per_block: int | None = None,
+                pages_per_chunk: int | None = None,
+                threads: int | None = None) -> LaunchPlan:
+    """How the kernel is launched for a hop of ``nq`` queries x ``b`` pages.
+
+    With ADC a block owns one query's pages, so its (M, K) table is staged
+    once; when fewer queries than ``sms`` would leave SMs idle, each
+    query's pages are split over up to ``ceil(2 sms / nq)`` blocks (at
+    Q = 64 one page a block was the fastest plan on the H100). Members
+    only, one block scores one (query, page). A block stages the member rows
+    of up to ``CHUNK_BYTES`` of pages at once and loops over the rest.
+    ``pages_per_block`` (ADC only), ``pages_per_chunk`` and ``threads``
+    replace the plan's own choices (every plan gives the same bits). Raises
+    where one page's rows, the query and its table do not fit in one
+    block's shared memory."""
+    page_floats = rl.member_rows(capacity, dim) * rl.PAGE_LANES
+    fixed = dim + (m * k if compute_adc else 0)
+    smem_min = (fixed + page_floats) * 4
+    _require(smem_min <= SMEM_LIMIT,
+             f"{smem_min} bytes of shared memory needed, {SMEM_LIMIT} available")
+    _require(compute_adc or pages_per_block in (None, 1),
+             "a members-only scan runs one page a block")
+    ppb = pages_per_block
+    if ppb is None and compute_adc:
+        groups = 1 if nq >= sms else max(1, min(b, -(-2 * sms // max(nq, 1))))
+        ppb = -(-b // groups)
+    ppb = max(1, min(b, ppb or 1))
+    fit = min(CHUNK_BYTES // 4, SMEM_LIMIT // 4 - fixed) // page_floats
+    ppc = max(1, min(ppb, pages_per_chunk or fit))
+    if threads is None:
+        threads = MAX_THREADS if compute_adc and ppc * rp > 128 else 128
+    return LaunchPlan(grid=nq * -(-b // ppb), threads=threads,
+                      smem_bytes=(fixed + ppc * page_floats) * 4,
+                      pages_per_block=ppb, pages_per_chunk=ppc)
+
+
+@functools.cache
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch(recs, page_ids, q, lut, member_mask, *, nq, b, capacity, dim,
             rp, compute_adc, staged):
-    """Check the inputs the two wrappers share, allocate, launch, count."""
+    """Check the inputs the two wrappers share, plan, allocate, launch,
+    count."""
     dev = recs.device
     tensors = [recs, q] + ([page_ids] if page_ids is not None else [])
     tensors += [lut] if compute_adc else []
@@ -62,9 +123,8 @@ def _launch(recs, page_ids, q, lut, member_mask, *, nq, b, capacity, dim,
     _require(mrows + m <= rows,
              f"records of {rows} rows cannot hold {mrows} member rows and "
              f"{m} code rows")
-    smem = (mrows * rl.PAGE_LANES + dim + m * k) * 4
-    _require(smem <= SMEM_LIMIT,
-             f"{smem} bytes of shared memory needed, {SMEM_LIMIT} available")
+    plan = launch_plan(nq, b, capacity=capacity, dim=dim, rp=rp, m=m, k=k,
+                       compute_adc=compute_adc, sms=_sms(dev))
 
     member_d = torch.empty((nq, b, capacity), dtype=torch.float32, device=dev)
     nbr_d = (torch.empty((nq, b, rp), dtype=torch.float32, device=dev)
@@ -82,7 +142,7 @@ def _launch(recs, page_ids, q, lut, member_mask, *, nq, b, capacity, dim,
             member_d.data_ptr(),
             nbr_d.data_ptr() if compute_adc else None,
             nq, b, num_records, rows, mrows, m, k, capacity, dim, rp,
-            int(compute_adc), int(staged),
+            int(compute_adc), int(staged), *plan,
             torch.cuda.current_stream().cuda_stream,
         )
     name = "page_scan" + ("_recs" if staged else "")

@@ -27,7 +27,12 @@ PAGE_CASES = [
     (11, 5, 128, 48, 16, 8),    # d == full lane width
     (5, 3, 200, 12, 4, 4),      # d > 128: vectors span 2 record rows
     (4, 6, 384, 16, 8, 2),
+    (50, 6, 128, 48, 16, 16),   # large b: a block loops over page chunks
+    (9, 5, 18, 20, 6, 3),       # M outside 4/8/16; q rows not 16-byte aligned
 ]
+# queries per hop: one, a few (late hops of a frozen batch), fewer than the
+# card's SMs, and more
+NQ_CASES = [1, 3, 64, 300]
 
 
 def page_inputs(p, cap, d, rp, m, b, nq=3):
@@ -73,11 +78,12 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq", NQ_CASES)
 @pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
 @pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES)
-def test_page_scan_kernel_matches_plain(cuda, p, cap, d, rp, m, b, adc):
+def test_page_scan_kernel_matches_plain(cuda, p, cap, d, rp, m, b, adc, nq):
     recs, ids, q, lut = (torch.as_tensor(a).to(cuda)
-                         for a in page_inputs(p, cap, d, rp, m, b, nq=64))
+                         for a in page_inputs(p, cap, d, rp, m, b, nq=nq))
     kw = dict(capacity=cap, dim=d, rp=rp, compute_adc=adc)
     name = "page_scan" if adc else "page_scan_members"
     before = ops.launch_counts()[name]
@@ -90,19 +96,20 @@ def test_page_scan_kernel_matches_plain(cuda, p, cap, d, rp, m, b, adc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nq", NQ_CASES)
 @pytest.mark.parametrize("source", ["ids", "staged"])
 @pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
 @pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES)
 def test_masked_and_staged_page_scans_match_plain(cuda, p, cap, d, rp, m, b,
-                                                 adc, source):
+                                                 adc, source, nq):
     """The masked variants (filtered search) and the staged ones (streamed
     tier) against their plain versions; a staged record scores exactly
     like the same record read by page id."""
     recs, ids, q, lut = (torch.as_tensor(a).to(cuda)
-                         for a in page_inputs(p, cap, d, rp, m, b, nq=64))
+                         for a in page_inputs(p, cap, d, rp, m, b, nq=nq))
     rng = np.random.default_rng(p + cap)
     mask = torch.as_tensor(
-        (rng.random((64, b, cap)) < 0.5).astype(np.float32)).to(cuda)
+        (rng.random((nq, b, cap)) < 0.5).astype(np.float32)).to(cuda)
     mask[0, 0, 0] = float("nan")              # NaN fails the test, as > 0
     staged = recs[ids.long()].contiguous()
     kw = dict(capacity=cap, dim=d, rp=rp, compute_adc=adc)
@@ -129,6 +136,36 @@ def test_masked_and_staged_page_scans_match_plain(cuda, p, cap, d, rp, m, b,
         assert torch.equal(got[0], by_id[0])
         if adc:
             assert torch.equal(got[1], by_id[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adc,override", [
+    (True, dict(pages_per_block=1)), (True, dict(pages_per_block=3)),
+    (True, dict(pages_per_block=16, pages_per_chunk=1)),
+    (True, dict(threads=128)), (True, dict(threads=64)),
+    (True, dict(threads=256)),
+    (False, dict(threads=64)), (False, dict(threads=256))], ids=str)
+@pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES)
+def test_page_scan_plans_score_bit_for_bit_alike(cuda, monkeypatch, p, cap, d,
+                                                 rp, m, b, adc, override):
+    """Any launch plan (pages per block and per chunk, threads) gives the
+    same bits: the plan only changes which block sums what, not the sums."""
+    from repro_torch.kernels import page_scan as page_scan_k
+
+    recs, ids, q, lut = (torch.as_tensor(a).to(cuda)
+                         for a in page_inputs(p, cap, d, rp, m, b, nq=64))
+    mask = torch.as_tensor(np.random.default_rng(p).random((64, b, cap)) < 0.5
+                           ).float().to(cuda)
+    kw = dict(capacity=cap, dim=d, rp=rp, compute_adc=adc, member_mask=mask)
+    want = ops.page_scan(recs, ids, q, lut, **kw)
+    plan = page_scan_k.launch_plan
+    monkeypatch.setattr(page_scan_k, "launch_plan",
+                        lambda *a, **k: plan(*a, **k, **override))
+    for got in (ops.page_scan(recs, ids, q, lut, **kw),
+                ops.page_scan_recs(recs[ids.long()].contiguous(), q, lut, **kw)):
+        assert torch.equal(got[0], want[0])
+        if adc:
+            assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -233,7 +270,7 @@ def test_page_gather_l2_kernel_equals_page_scan_members(cuda):
     md, _ = ops.page_scan(recs, ids, q, None, capacity=6, dim=128, rp=48,
                           compute_adc=False)
     got = ops.page_gather_l2(torch.as_tensor(vecs).to(cuda), ids, q)
-    torch.testing.assert_close(got, md, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, md)
 
 
 @pytest.mark.cuda

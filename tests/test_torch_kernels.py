@@ -8,6 +8,7 @@ CUDA kernels themselves are held against the plain versions in
 no JAX so it runs on a GPU host) and by ``chip_smoke.py`` at the main
 path's shapes.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -244,6 +245,92 @@ def test_delta_scan_matches_jax_ops_ref_and_pallas(k, masked):
     for row in range(7):
         inf_slots = slots[row][torch.isinf(dists[row])]
         assert torch.equal(inf_slots, torch.sort(inf_slots).values)
+
+
+# ------------------------------------------------------------- launch plan
+def _plan_for(cfg, nq, b=None, **kw):
+    """``launch_plan`` for a ``PageANNConfig``'s page geometry."""
+    from repro_torch.core.config import MemoryMode
+
+    adc = cfg.memory_mode != MemoryMode.MEM_ALL
+    return page_scan_k.launch_plan(
+        nq, cfg.io_batch if b is None else b, capacity=cfg.resolve_capacity(),
+        dim=cfg.dim, rp=cfg.page_degree, m=cfg.pq_subspaces if adc else 0,
+        k=cfg.pq_ksub if adc else 0, compute_adc=adc, **kw)
+
+
+def _blocks_cover_every_page_once(plan, nq, b):
+    """Walk the grid as the kernel does (block -> query and first page,
+    then chunk by chunk): every (query, page) is scored exactly once."""
+    groups = -(-b // plan.pages_per_block)
+    seen = []
+    for blk in range(plan.grid):
+        qi, first = blk // groups, (blk % groups) * plan.pages_per_block
+        last = min(b, first + plan.pages_per_block)
+        for c0 in range(first, last, plan.pages_per_chunk):
+            seen += [(qi, p) for p in range(c0, min(last, c0 + plan.pages_per_chunk))]
+    return sorted(seen) == [(i, j) for i in range(nq) for j in range(b)]
+
+
+def test_launch_plan_main_path_is_one_chunk_of_five_pages_per_query():
+    from repro_torch.core.config import MemoryMode, PageANNConfig
+
+    cfg = PageANNConfig(dim=128, memory_mode=MemoryMode.HYBRID)
+    plan = _plan_for(cfg, 1000)
+    assert (plan.grid, plan.pages_per_block, plan.pages_per_chunk) == (1000, 5, 5)
+    # query, table and the five pages' member rows: 512 + 16,384 + 15,360
+    assert plan.smem_bytes == 32256 <= 48 * 1024
+    assert plan.threads == 256               # 5 x 48 neighbour columns
+    assert _blocks_cover_every_page_once(plan, 1000, 5)
+    # members only (MEM_ALL): one block per (query, page), no table
+    plan = _plan_for(dataclasses.replace(cfg, memory_mode=MemoryMode.MEM_ALL), 1000)
+    assert (plan.grid, plan.pages_per_block, plan.pages_per_chunk) == (5000, 1, 1)
+    assert plan.smem_bytes == (7 * 128 + 128) * 4
+
+
+def test_launch_plan_chunks_large_pages_within_shared_memory():
+    from repro_torch.core.config import MemoryMode, PageANNConfig
+
+    cfg = PageANNConfig(dim=384, pq_subspaces=16, memory_mode=MemoryMode.HYBRID)
+    plan = _plan_for(cfg, 1000, b=32)
+    assert plan.pages_per_block == 32
+    assert 1 <= plan.pages_per_chunk < 32    # the block loops over chunks
+    assert plan.smem_bytes <= page_scan_k.SMEM_LIMIT
+    assert _blocks_cover_every_page_once(plan, 1000, 32)
+    # 30 members of d = 384 (46 KB a page) exceed a chunk: one page at a time
+    plan = page_scan_k.launch_plan(10, 32, capacity=30, dim=384, rp=16, m=8,
+                                   k=256, compute_adc=True)
+    assert plan.pages_per_chunk == 1
+    assert plan.smem_bytes == (30 * 3 * 128 + 8 * 256 + 384) * 4
+
+
+@pytest.mark.parametrize("nq", [1, 3, 64, 131, 132, 300])
+@pytest.mark.parametrize("b", [1, 5, 16])
+def test_launch_plan_splits_pages_when_queries_are_few(nq, b):
+    """Below one query per SM a query's pages spread over several blocks;
+    from one per SM on, one block per query stages its table once."""
+    plan = page_scan_k.launch_plan(nq, b, capacity=6, dim=128, rp=48, m=16,
+                                   k=256, compute_adc=True, sms=132)
+    if nq >= 132:
+        assert plan.pages_per_block == b and plan.grid == nq
+    else:
+        assert plan.grid >= min(132, nq * b)
+    assert plan.pages_per_chunk <= plan.pages_per_block
+    assert _blocks_cover_every_page_once(plan, nq, b)
+
+
+def test_launch_plan_raises_where_a_table_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        page_scan_k.launch_plan(8, 5, capacity=6, dim=128, rp=48, m=256,
+                                k=256, compute_adc=True)
+    # the same geometry without ADC needs no table and fits
+    plan = page_scan_k.launch_plan(8, 5, capacity=6, dim=128, rp=48, m=0,
+                                   k=0, compute_adc=False)
+    assert plan.smem_bytes <= page_scan_k.SMEM_LIMIT
+    # a members-only block scores one page
+    with pytest.raises(ValueError, match="one page a block"):
+        page_scan_k.launch_plan(8, 5, capacity=6, dim=128, rp=48, m=0, k=0,
+                                compute_adc=False, pages_per_block=5)
 
 
 # ------------------------------------------------------------- dispatch
