@@ -12,7 +12,8 @@ version. Phases, one JSON line each:
   kernels   each kernel vs its plain version at the main path's shapes
             (and both record packings, d = 32 / 128 / 200), with times;
             the masked (filtered) and staged (streamed) page-scan variants,
-            the four ADC ones also at Q = 64
+            all eight also at Q = 64; the members-only scores must equal
+            the ADC variants' bit for bit on the same records
   sift1m    the kernels on SIFT1M-size state: 1,000,000 vectors at d = 128
             in HYBRID pages (about 2 GB of records on the device), and one
             streamed hop with 25% of those pages on the card and the rest
@@ -323,6 +324,33 @@ def _page_scan_case(s: Smoke, recs, ids, q, lut, *, cap, dim, rp, m,
     )
 
 
+def _members_equal_adc(s: Smoke, recs, ids, q, lut, *, cap, dim, rp) -> None:
+    """On records that hold code rows, the members-only scan's member scores
+    equal the ADC scan's bit for bit (one per-member sum in both kernels),
+    by page id and staged, masked and not; raises where they differ."""
+    torch = s.torch
+    from repro_torch.kernels import page_scan as page_scan_k
+
+    nq, b = ids.shape
+    gen = torch.Generator(device=recs.device).manual_seed(s.seed + 2)
+    mask = (torch.rand((nq, b, cap), generator=gen, device=recs.device)
+            < 0.5).float()
+    recs_b = recs[ids.long()].contiguous()
+    for mk in (None, mask):
+        for staged in (False, True):
+            def scan(adc):
+                kw = dict(capacity=cap, dim=dim, rp=rp, compute_adc=adc,
+                          member_mask=mk)
+                if staged:
+                    return page_scan_k.page_scan_recs(recs_b, q, lut, **kw)[0]
+                return page_scan_k.page_scan(recs, ids, q, lut, **kw)[0]
+
+            if not torch.equal(scan(False), scan(True)):
+                raise AssertionError(
+                    f"{_variant(False, mk is not None, staged)}: member "
+                    f"scores differ from the ADC variant's at d = {dim}")
+
+
 def _pq_adc_case(s: Smoke, codes, lut, reps: int) -> dict:
     torch = s.torch
     import torch.nn.functional as F
@@ -489,6 +517,9 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
         row = _page_scan_case(s, recs, ids, q, lut, cap=cap, dim=cfg.dim,
                               rp=rp, m=m, adc=adc, reps=50)
         cases.append(row)
+        if adc:
+            _members_equal_adc(s, recs, ids, q, lut, cap=cap, dim=cfg.dim,
+                               rp=rp)
         if cfg is cfg_hybrid:
             # page_gather_l2 at the main path's HYBRID page store
             s.rows["page_gather_l2"] = _page_gather_case(s, recs, ids, q, cap=cap)
@@ -503,8 +534,8 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
                                       reps=50, masked=masked, staged=staged)
                 s.rows[row["name"]] = row
                 cases.append(row)
-        if cfg is cfg_hybrid:
-            # the ADC variants at Q = 64: the late hops of a batch whose
+        if cfg is cfg_hybrid or cfg is cfg_memall:
+            # every variant at Q = 64: the late hops of a batch whose
             # finished lanes are frozen, and most hops of a filtered search
             for masked, staged in ((False, False), (True, False),
                                    (False, True), (True, True)):

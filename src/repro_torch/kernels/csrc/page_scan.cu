@@ -51,14 +51,26 @@
 //     two overlap; any other M loads in groups of 4), then the table entries
 //     are summed in the order s = 0 .. M-1. The ADC is never masked
 //     (traversal has to cross filtered-out regions).
-//   - Members-only variants have no table to share: one block per (query,
-//     page), fixed at compile time, so the chunk and page loops fold away.
-//     MEM_ALL records have no code rows.
-// All eight variants (ADC or members only, masked or not, page ids or a
-// staged batch) run one kernel body; staging changes only where a record is
-// read from. So a staged record and a resident one go through the same
-// instructions in the same order, and the streamed search scores bit for bit
-// like the resident one; the chunking and the plan do not change any sum.
+//   - Members-only variants (page_scan_members_kernel) have no table to share.
+//     With a block per (query, page) they are latency-bound: at Q = 1,000 each
+//     of ~2.4 waves of blocks waits on the page id, then on its staged record,
+//     then on a barrier. So one warp scores one (query, slot) item, a block
+//     holds a few consecutive items (mostly of one query, so the query's loads
+//     hit L1), and there is no shared memory and no barrier: at Q = 1,000,
+//     b = 5 the 5,000 warps take 1.2 waves. The warp loads its page id, then
+//     issues every member load of the record (capacity x ceil(d/32) coalesced
+//     warp loads through the read-only path, in groups of at most 32 a lane),
+//     the query's columns and the mask words, and only then sums. The
+//     xor-shuffle tree of a group runs on all its members at once: each step a
+//     lane keeps half of its values and adds the partner lane's copy of that
+//     half, so 8 members of d = 128 take 9 shuffles instead of 40, and each
+//     member ends in 32 / 8 lanes. MEM_ALL records have no code rows.
+// Every variant sums a member as page_gather.cu does: lane l takes columns
+// l, l + 32, ... in order with fmaf, then the xor-shuffle tree (offsets 16
+// down to 1, own value first), then the mask. So the members-only and ADC
+// variants give the same member scores, and a staged record scores bit for
+// bit like the same record read by page id (the streamed search equals the
+// resident one); the chunking and the plan do not change any sum.
 //
 // The launch plan (grid, threads, shared bytes, pages per block and per
 // chunk) is computed by the wrapper (kernels/page_scan.py, launch_plan) and
@@ -74,12 +86,13 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kMaxThreads = 256;
 // Blocks of kMaxThreads that must fit on an SM (launch bounds, so a register
-// cap). A members-only block runs 128 threads and little work, so it needs
-// many blocks an SM: 8 caps it at 32 registers, 16 blocks of 128. An ADC
-// block keeps M codes a thread in flight: 4 caps it at 64 registers; a cap
-// of 40 (6 blocks) spilled them and ran 8-13% slower on the H100.
+// cap). An ADC block keeps M codes a thread in flight: 4 caps it at 64
+// registers; a cap of 40 (6 blocks) spilled them and ran 8-13% slower on
+// the H100. A members-only warp keeps up to 32 member floats a lane in
+// flight: 4 caps it at 64 registers (32 warps an SM, 4,224 on the card);
+// 5 (48 registers, one wave of 5,000 warps) spilled and ran 11-31% slower.
 constexpr int kAdcMinBlocks = 4;
-constexpr int kMembersMinBlocks = 8;
+constexpr int kMembersMinBlocks = 4;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -177,10 +190,9 @@ __device__ __forceinline__ float adc_sum_any(const float* col,
 }
 
 // kM: the number of code rows when it is 4, 8 or 16 (unrolled), else 0.
-template <bool kAdc, bool kMask, bool kStaged, int kM>
-__global__ void __launch_bounds__(kMaxThreads,
-                                  kAdc ? kAdcMinBlocks : kMembersMinBlocks)
-    page_scan_kernel(
+template <bool kMask, bool kStaged, int kM>
+__global__ void __launch_bounds__(kMaxThreads, kAdcMinBlocks)
+    page_scan_adc_kernel(
     const float* __restrict__ recs, const int32_t* __restrict__ page_ids,
     const float* __restrict__ q, const float* __restrict__ lut,
     const float* __restrict__ mask, float* __restrict__ md,
@@ -188,16 +200,10 @@ __global__ void __launch_bounds__(kMaxThreads,
     int num_pages, int rows, int mrows, int m, int k, int cap, int dim,
     int rp) {
   extern __shared__ float4 smem4[];
-  if constexpr (!kAdc) {
-    // members only: one page a block, known here, so the chunk and page
-    // loops below fold away
-    groups = b;
-    ppb = ppc = 1;
-  }
   const int rec_floats = mrows * kLanes;
   float* rec_s = reinterpret_cast<float*>(smem4);     // ppc * rec_floats
   float* lut_s = rec_s + ppc * rec_floats;            // m * k (ADC only)
-  float* q_s = lut_s + (kAdc ? m * k : 0);            // dim
+  float* q_s = lut_s + m * k;                          // dim
   const int qi = blockIdx.x / groups;  // groups: blocks per query
   const int first = (blockIdx.x - qi * groups) * ppb;
   const int last = min(b, first + ppb);
@@ -210,15 +216,15 @@ __global__ void __launch_bounds__(kMaxThreads,
   const int rpv = dim <= kLanes ? 1 : (dim + kLanes - 1) / kLanes;
 
   stage(q_s, q + static_cast<size_t>(qi) * dim, dim);
-  if (kAdc) stage(lut_s, lut + static_cast<size_t>(qi) * m * k, m * k);
+  stage(lut_s, lut + static_cast<size_t>(qi) * m * k, m * k);
   // the first (page, member) of this warp and (page, column) of this thread
   // in a chunk; later ones are stepped to, not divided out
   int mem_p0 = 0, mem_i0 = warp;
   for (; mem_i0 >= cap; mem_i0 -= cap) ++mem_p0;
-  const int col_p0 = kAdc ? threadIdx.x / rp : 0;
-  const int col_j0 = kAdc ? threadIdx.x - col_p0 * rp : 0;
+  const int col_p0 = threadIdx.x / rp;
+  const int col_j0 = threadIdx.x - col_p0 * rp;
   for (int c0 = first; c0 < last; c0 += ppc) {
-    const int n = kAdc ? min(ppc, last - c0) : 1;
+    const int n = min(ppc, last - c0);
     const size_t item0 = static_cast<size_t>(qi) * b + c0;
     if (c0 > first) __syncthreads();  // the last chunk's rows are consumed
     for (int p = 0; p < n; ++p) {
@@ -229,7 +235,7 @@ __global__ void __launch_bounds__(kMaxThreads,
         cp_async16(dst + i, rec + i);
     }
     float codes[kM > 0 ? kM : 1];
-    if constexpr (kAdc && kM > 0) {
+    if constexpr (kM > 0) {
       if (col_p0 < n)
         load_codes<kM>(codes, record<kStaged>(recs, page_ids, item0 + col_p0,
                                               num_pages, rows) +
@@ -251,24 +257,140 @@ __global__ void __launch_bounds__(kMaxThreads,
       for (i += nwarps; i >= cap; i -= cap) ++p;
     }
 
-    if constexpr (kAdc) {
-      bool prefetched = kM > 0;
-      for (int p = col_p0, j = col_j0; p < n;) {
-        const float* col = record<kStaged>(recs, page_ids, item0 + p,
-                                           num_pages, rows) +
-                           rec_floats + j;
-        float acc;
-        if constexpr (kM > 0) {
-          if (!prefetched) load_codes<kM>(codes, col);
-          acc = adc_sum<kM>(codes, lut_s, k);
-        } else {
-          acc = adc_sum_any(col, lut_s, m, k);
-        }
-        nd[(item0 + p) * rp + j] = acc;
-        prefetched = false;
-        for (j += blockDim.x; j >= rp; j -= rp) ++p;
+    bool prefetched = kM > 0;
+    for (int p = col_p0, j = col_j0; p < n;) {
+      const float* col = record<kStaged>(recs, page_ids, item0 + p,
+                                         num_pages, rows) +
+                         rec_floats + j;
+      float acc;
+      if constexpr (kM > 0) {
+        if (!prefetched) load_codes<kM>(codes, col);
+        acc = adc_sum<kM>(codes, lut_s, k);
+      } else {
+        acc = adc_sum_any(col, lut_s, m, k);
       }
+      nd[(item0 + p) * rp + j] = acc;
+      prefetched = false;
+      for (j += blockDim.x; j >= rp; j -= rp) ++p;
     }
+  }
+}
+
+// Adds the squared differences of kG members in kJ of their columns
+// (c + 32 j; c starts at the lane) to acc; every load, the query's
+// included, is issued before the first FMA. Only the first n members of
+// the group exist. The first one starts at float row + col * dim of the
+// record (row: a member row's first float, col: the slot within it), and a
+// member row holds vpr members, row_floats floats apart.
+template <int kJ, int kG, bool kFirst>
+__device__ __forceinline__ void member_slab(float (&acc)[kG],
+                                            const float* rec, int row,
+                                            int col, int row_floats, int vpr,
+                                            int n, const float* qv, int c,
+                                            int dim) {
+  float qr[kJ], x[kG][kJ];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+    qr[j] = c + 32 * j < dim ? __ldg(qv + c + 32 * j) : 0.f;
+#pragma unroll
+  for (int i = 0; i < kG; ++i) {
+    const float* v = rec + row + col * dim + c;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+      x[i][j] = i < n && c + 32 * j < dim ? __ldg(v + 32 * j) : 0.f;
+    if (++col == vpr) {
+      col = 0;
+      row += row_floats;
+    }
+  }
+  // past the member's last column both terms are 0, and fmaf(0, 0, acc)
+  // is acc: the same sum as a loop that stops at dim
+#pragma unroll
+  for (int i = 0; i < kG; ++i) {
+    float a = kFirst ? 0.f : acc[i];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const float t = x[i][j] - qr[j];
+      a = fmaf(t, t, a);
+    }
+    acc[i] = a;
+  }
+}
+
+// Halves the kG values of every lane in one step of warp_sum's xor tree
+// (offset 32 kN / kG): a lane keeps the half whose index bit is its own
+// lane bit and adds the partner lane's copy of it, own value first, as
+// warp_sum does.
+template <int kN, int kG>
+__device__ __forceinline__ void halve(float (&a)[kG], int lane) {
+  constexpr int kOff = 32 * kN / kG;
+  const bool hi = lane & kOff;
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const float keep = hi ? a[i + kN] : a[i];
+    const float send = hi ? a[i] : a[i + kN];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+  }
+  if constexpr (kN > 1) halve<kN / 2, kG>(a, lane);
+}
+
+// warp_sum of each of kG values, the same tree and the same bits: the
+// first log2(kG) steps halve the values, the rest add one. Value i ends in
+// lanes i * 32 / kG .. (i + 1) * 32 / kG - 1.
+template <int kG>
+__device__ __forceinline__ float warp_sums(float (&a)[kG], int lane) {
+  if constexpr (kG > 1) halve<kG / 2, kG>(a, lane);
+  float v = a[0];
+#pragma unroll
+  for (int off = 16 / kG; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Members only: one warp per (query, slot) item, blockDim.x / 32
+// consecutive items a block, no shared memory. kJ: the columns a lane takes
+// from one 128-float row, ceil(d / 32) when d <= 128; kSpan: d > 128 (kJ is
+// then 4 and a member spans ceil(d / 128) rows, summed row after row).
+// Members go in groups of kG, at most 32 loads a lane in flight; member i
+// of a group is summed into lanes i * 32 / kG on, and the first of them
+// stores it.
+template <bool kMask, bool kStaged, int kJ, bool kSpan>
+__global__ void __launch_bounds__(kMaxThreads, kMembersMinBlocks)
+    page_scan_members_kernel(
+    const float* __restrict__ recs, const int32_t* __restrict__ page_ids,
+    const float* __restrict__ q, const float* __restrict__ mask,
+    float* __restrict__ md, int b, int items, int num_pages, int rows,
+    int cap, int dim) {
+  constexpr int kG = kJ == 1 ? 32 : kJ == 2 ? 16 : 8;  // divides 32
+  constexpr int kLanesPer = 32 / kG;
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (item >= items) return;
+  const float* rec = record<kStaged>(recs, page_ids, item, num_pages, rows);
+  const float* qv = q + static_cast<size_t>(item / b) * dim;
+  // d <= 128: 128/d members share a row; d > 128: a member spans
+  // ceil(d/128) rows. From d = 65 on a row holds one member, known here,
+  // so the member loads take fixed offsets from one address.
+  const int vpr = kJ >= 3 ? 1 : kLanes / dim;
+  const int row_floats =
+      kSpan ? (dim + kLanes - 1) / kLanes * kLanes : kLanes;
+  const size_t out = static_cast<size_t>(item) * cap;
+  for (int g0 = 0; g0 < cap; g0 += kG) {
+    const int mi = g0 + lane / kLanesPer;  // the member this lane sums
+    // NaN masks fail the test, as jnp.where(mask > 0, ...) does
+    const bool pass = !kMask || (mi < cap && __ldg(mask + out + mi) > 0.f);
+    const int r = g0 / vpr;
+    float acc[kG];
+    member_slab<kJ, kG, true>(acc, rec, r * row_floats, g0 - r * vpr,
+                              row_floats, vpr, cap - g0, qv, lane, dim);
+    if constexpr (kSpan) {
+      for (int c = lane + 32 * kJ; c < dim; c += 32 * kJ)
+        member_slab<kJ, kG, false>(acc, rec, r * row_floats, g0 - r * vpr,
+                                   row_floats, vpr, cap - g0, qv, c, dim);
+    }
+    const float sum = warp_sums<kG>(acc, lane);
+    if (lane % kLanesPer == 0 && mi < cap)
+      md[out + mi] = pass ? sum : INFINITY;
   }
 }
 
@@ -284,9 +406,9 @@ struct Args {
   int grid, threads, smem;
 };
 
-template <bool kAdc, bool kMask, bool kStaged, int kM>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kernel = page_scan_kernel<kAdc, kMask, kStaged, kM>;
+template <bool kMask, bool kStaged, int kM>
+cudaError_t launch_adc(const Args& a, cudaStream_t stream) {
+  auto kernel = page_scan_adc_kernel<kMask, kStaged, kM>;
   if (a.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
@@ -299,32 +421,42 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kAdc, bool kMask, bool kStaged>
-cudaError_t launch_m(const Args& a, cudaStream_t s) {
-  if constexpr (!kAdc) {
-    return launch<kAdc, kMask, kStaged, 0>(a, s);
-  } else {
-    switch (a.m) {
-      case 4: return launch<kAdc, kMask, kStaged, 4>(a, s);
-      case 8: return launch<kAdc, kMask, kStaged, 8>(a, s);
-      case 16: return launch<kAdc, kMask, kStaged, 16>(a, s);
-      default: return launch<kAdc, kMask, kStaged, 0>(a, s);
-    }
-  }
+template <bool kMask, bool kStaged, int kJ, bool kSpan>
+cudaError_t launch_members(const Args& a, int items, cudaStream_t stream) {
+  page_scan_members_kernel<kMask, kStaged, kJ, kSpan>
+      <<<a.grid, a.threads, 0, stream>>>(a.recs, a.page_ids, a.q, a.mask,
+                                         a.md, a.b, items, a.num_pages,
+                                         a.rows, a.cap, a.dim);
+  return cudaGetLastError();
 }
 
-template <bool kAdc, bool kMask>
-cudaError_t launch_src(int staged, const Args& a, cudaStream_t s) {
-  return staged ? launch_m<kAdc, kMask, true>(a, s)
-                : launch_m<kAdc, kMask, false>(a, s);
+template <bool kMask, bool kStaged>
+cudaError_t launch_src(bool adc, int items, const Args& a, cudaStream_t s) {
+  if (adc) {
+    switch (a.m) {
+      case 4: return launch_adc<kMask, kStaged, 4>(a, s);
+      case 8: return launch_adc<kMask, kStaged, 8>(a, s);
+      case 16: return launch_adc<kMask, kStaged, 16>(a, s);
+      default: return launch_adc<kMask, kStaged, 0>(a, s);
+    }
+  }
+  switch ((a.dim + 31) / 32) {
+    case 1: return launch_members<kMask, kStaged, 1, false>(a, items, s);
+    case 2: return launch_members<kMask, kStaged, 2, false>(a, items, s);
+    case 3: return launch_members<kMask, kStaged, 3, false>(a, items, s);
+    case 4: return launch_members<kMask, kStaged, 4, false>(a, items, s);
+    default: return launch_members<kMask, kStaged, 4, true>(a, items, s);
+  }
 }
 
 }  // namespace
 
 // mask == null: unmasked; staged != 0: recs is the (nq * b, rows, 128) staged
 // batch and page_ids is ignored (num_pages then counts its records). grid,
-// threads, smem, pages_per_block and pages_per_chunk are the launch plan;
-// a plan the kernel cannot run returns cudaErrorInvalidValue.
+// threads, smem, pages_per_block and pages_per_chunk are the launch plan
+// (members only: pages_per_block is the block's warps, one page each, and
+// pages_per_chunk 1); a plan the kernel cannot run returns
+// cudaErrorInvalidValue.
 extern "C" int pageann_page_scan(const float* recs, const int32_t* page_ids,
                                  const float* q, const float* lut,
                                  const float* mask, float* md, float* nd,
@@ -336,26 +468,34 @@ extern "C" int pageann_page_scan(const float* recs, const int32_t* page_ids,
                                  void* stream) {
   if (nq == 0 || b == 0) return 0;
   const int ppb = pages_per_block, ppc = pages_per_chunk;
-  const int groups = ppb > 0 ? (b + ppb - 1) / ppb : 0;
-  const long long floats = static_cast<long long>(ppc) * mrows * kLanes +
-                           (compute_adc ? static_cast<long long>(m) * k : 0) +
-                           dim;
-  if (ppb < 1 || ppc < 1 || ppc > ppb || (!compute_adc && ppb != 1) ||
-      grid != nq * groups || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 ||
-      static_cast<long long>(smem) < floats * 4)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(nq) * b;
+  bool ok = threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
+            ppb >= 1 && ppc >= 1 && ppc <= ppb && smem >= 0;
+  int groups = 0;
+  if (compute_adc) {
+    groups = ok ? (b + ppb - 1) / ppb : 0;
+    const long long floats = static_cast<long long>(ppc) * mrows * kLanes +
+                             static_cast<long long>(m) * k + dim;
+    ok = ok && grid == nq * groups &&
+         static_cast<long long>(smem) >= floats * 4;
+  } else {
+    ok = ok && ppb == threads / 32 && ppc == 1 &&
+         grid == (items + ppb - 1) / ppb && items <= INT32_MAX;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{recs, page_ids, q, lut, mask, md, nd, b, groups, ppb, ppc,
                num_pages, rows, mrows, m, k, cap, dim, rp, grid, threads,
                smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool adc = compute_adc != 0;
+  const int n = static_cast<int>(items);
   cudaError_t err;
-  if (compute_adc) {
-    err = mask ? launch_src<true, true>(staged, a, s)
-               : launch_src<true, false>(staged, a, s);
+  if (mask) {
+    err = staged ? launch_src<true, true>(adc, n, a, s)
+                 : launch_src<true, false>(adc, n, a, s);
   } else {
-    err = mask ? launch_src<false, true>(staged, a, s)
-               : launch_src<false, false>(staged, a, s);
+    err = staged ? launch_src<false, true>(adc, n, a, s)
+                 : launch_src<false, false>(adc, n, a, s);
   }
   return static_cast<int>(err);
 }

@@ -10,10 +10,12 @@ stages the query and its table once and the member rows of its pages
 together (16-byte ``cp.async``), scores one (page, member) per warp and
 one (page, neighbour column) per thread, gathering ADC sums from the table
 in shared memory instead of the TPU's one-hot matrix-unit contraction.
-Members-only scans keep one block per (query, page). ``launch_plan`` picks
-the grid, threads, shared memory and pages per block and per chunk; every
-variant runs the same kernel body, so a staged record scores bit for bit
-like the same record read by page id, whatever the plan.
+Members-only scans run one warp per (query, page) with no shared memory: the
+warp issues every member load of its record at once and keeps them in
+registers. ``launch_plan`` picks the grid, threads, shared memory and pages
+per block and per chunk. Every variant sums a member in the same order, so
+a staged record scores bit for bit like the same record read by page id,
+and the members-only scores equal the ADC variants', whatever the plan.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ SMEM_LIMIT = 227 * 1024  # dynamic shared memory one H100 block may use
 CHUNK_BYTES = 24 * 1024  # member rows one block stages at once
 NUM_SMS = 132            # streaming multiprocessors of an H100 SXM
 MAX_THREADS = 256        # the kernel's launch bound
+MEMBERS_WARPS = 4        # warps (pages) a members-only block, at most
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -37,11 +40,13 @@ def _require(cond: bool, msg: str) -> None:
 
 
 class LaunchPlan(NamedTuple):
-    grid: int             # blocks: queries x blocks per query
+    grid: int             # blocks
     threads: int          # threads per block
     smem_bytes: int       # dynamic shared memory per block
-    pages_per_block: int  # pages of one query that one block scores
-    pages_per_chunk: int  # pages whose member rows are in shared memory at once
+    pages_per_block: int  # ADC: pages of one query that one block scores;
+                          # members only: the block's warps, one page each
+    pages_per_chunk: int  # pages whose member rows are in shared memory at
+                          # once (members only: 1, nothing is staged)
 
 
 def launch_plan(nq: int, b: int, *, capacity: int, dim: int, rp: int, m: int,
@@ -54,29 +59,44 @@ def launch_plan(nq: int, b: int, *, capacity: int, dim: int, rp: int, m: int,
     With ADC a block owns one query's pages, so its (M, K) table is staged
     once; when fewer queries than ``sms`` would leave SMs idle, each
     query's pages are split over up to ``ceil(2 sms / nq)`` blocks (at
-    Q = 64 one page a block was the fastest plan on the H100). Members
-    only, one block scores one (query, page). A block stages the member rows
-    of up to ``CHUNK_BYTES`` of pages at once and loops over the rest.
-    ``pages_per_block`` (ADC only), ``pages_per_chunk`` and ``threads``
-    replace the plan's own choices (every plan gives the same bits). Raises
-    where one page's rows, the query and its table do not fit in one
-    block's shared memory."""
+    Q = 64 one page a block was the fastest plan on the H100). A block
+    stages the member rows of up to ``CHUNK_BYTES`` of pages at once and
+    loops over the rest. ``pages_per_block``, ``pages_per_chunk`` and
+    ``threads`` replace the plan's own choices (every plan gives the same
+    bits). Raises where one page's rows, the query and its table do not fit
+    in one block's shared memory.
+
+    Members only, one warp scores one (query, slot) item and a block the
+    next ``threads / 32`` of them, with no shared memory:
+    ``MEMBERS_WARPS`` warps a block, fewer while that leaves fewer blocks
+    than ``sms``. Only ``threads`` may be replaced."""
+    if not compute_adc:
+        _require(pages_per_block is None and pages_per_chunk is None,
+                 "a members-only scan runs one page a warp; threads sets "
+                 "the warps of a block")
+        if threads is None:
+            warps = MEMBERS_WARPS
+            while warps > 1 and -(-nq * b // warps) < sms:
+                warps //= 2
+            threads = 32 * warps
+        warps = max(1, threads // 32)
+        return LaunchPlan(grid=-(-nq * b // warps), threads=threads,
+                          smem_bytes=0, pages_per_block=warps,
+                          pages_per_chunk=1)
     page_floats = rl.member_rows(capacity, dim) * rl.PAGE_LANES
-    fixed = dim + (m * k if compute_adc else 0)
+    fixed = dim + m * k
     smem_min = (fixed + page_floats) * 4
     _require(smem_min <= SMEM_LIMIT,
              f"{smem_min} bytes of shared memory needed, {SMEM_LIMIT} available")
-    _require(compute_adc or pages_per_block in (None, 1),
-             "a members-only scan runs one page a block")
     ppb = pages_per_block
-    if ppb is None and compute_adc:
+    if ppb is None:
         groups = 1 if nq >= sms else max(1, min(b, -(-2 * sms // max(nq, 1))))
         ppb = -(-b // groups)
-    ppb = max(1, min(b, ppb or 1))
+    ppb = max(1, min(b, ppb))
     fit = min(CHUNK_BYTES // 4, SMEM_LIMIT // 4 - fixed) // page_floats
     ppc = max(1, min(ppb, pages_per_chunk or fit))
     if threads is None:
-        threads = MAX_THREADS if compute_adc and ppc * rp > 128 else 128
+        threads = MAX_THREADS if ppc * rp > 128 else 128
     return LaunchPlan(grid=nq * -(-b // ppb), threads=threads,
                       smem_bytes=(fixed + ppc * page_floats) * 4,
                       pages_per_block=ppb, pages_per_chunk=ppc)

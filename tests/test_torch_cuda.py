@@ -8,8 +8,9 @@ page-scan inputs below are shared with ``test_torch_kernels.py``):
 
 Tolerance for the float kernels: rtol 1e-5, atol 1e-4, because the kernel
 sums in another order than the plain version; ``hamming`` is exact, and so
-is a staged record against the same record read by page id (one device
-function scores both). ``l2_distance`` computes the expanded form
+are a staged record against the same record read by page id and the
+members-only scores against the ADC variant's (every variant sums a member
+in one order). ``l2_distance`` computes the expanded form
 ``(|q|^2 - 2 q.x) + |x|^2``, whose rounding error scales with the norms:
 it is held to rtol 1e-5 and atol 1e-6 (max|q|^2 + max|x|^2).
 """
@@ -29,6 +30,13 @@ PAGE_CASES = [
     (4, 6, 384, 16, 8, 2),
     (50, 6, 128, 48, 16, 16),   # large b: a block loops over page chunks
     (9, 5, 18, 20, 6, 3),       # M outside 4/8/16; q rows not 16-byte aligned
+]
+# capacities above a warp's 32 lanes, at d = 32 / 128 / 200: the
+# members-only kernel scores them in passes of 32
+WIDE_CASES = [
+    (6, 40, 32, 12, 4, 3),
+    (5, 33, 128, 12, 4, 3),
+    (4, 34, 200, 12, 8, 2),
 ]
 # queries per hop: one, a few (late hops of a frozen batch), fewer than the
 # card's SMs, and more
@@ -166,6 +174,46 @@ def test_page_scan_plans_score_bit_for_bit_alike(cuda, monkeypatch, p, cap, d,
         assert torch.equal(got[0], want[0])
         if adc:
             assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["ids", "staged"])
+@pytest.mark.parametrize("p,cap,d,rp,m,b", PAGE_CASES + WIDE_CASES)
+def test_members_only_scores_equal_the_adc_variants(cuda, p, cap, d, rp, m, b,
+                                                    source):
+    """On the same records (which hold code rows) the members-only kernel
+    scores every member bit for bit like the ADC one; a staged record like
+    the same record by page id; masked members, NaN masks included, score
+    +inf exactly where the mask is not > 0."""
+    recs, ids, q, lut = (torch.as_tensor(a).to(cuda)
+                         for a in page_inputs(p, cap, d, rp, m, b, nq=64))
+    rng = np.random.default_rng(p + cap + 1)
+    mask = torch.as_tensor(
+        (rng.random((64, b, cap)) < 0.5).astype(np.float32)).to(cuda)
+    mask[0, 0, 0] = float("nan")
+    mask[1, 0, 0] = -1.0
+    staged = recs[ids.long()].contiguous()
+    for member_mask in (None, mask):
+        kw = dict(capacity=cap, dim=d, rp=rp, member_mask=member_mask)
+
+        def run(adc, impl=None):
+            if source == "staged":
+                return ops.page_scan_recs(staged, q, lut, compute_adc=adc,
+                                          impl=impl, **kw)
+            return ops.page_scan(recs, ids, q, lut, compute_adc=adc,
+                                 impl=impl, **kw)
+
+        md, nd = run(False)
+        assert nd is None
+        assert torch.equal(md, run(True)[0])
+        assert torch.equal(md, ops.page_scan(recs, ids, q, lut,
+                                             compute_adc=False, **kw)[0])
+        torch.testing.assert_close(md, run(False, "plain")[0], rtol=1e-5,
+                                   atol=1e-4)
+        if member_mask is not None:
+            assert torch.equal(torch.isinf(md), ~(mask > 0))
+        else:
+            assert torch.isfinite(md).all()
 
 
 @pytest.mark.cuda

@@ -272,6 +272,15 @@ def _blocks_cover_every_page_once(plan, nq, b):
     return sorted(seen) == [(i, j) for i in range(nq) for j in range(b)]
 
 
+def _warps_cover_every_item_once(plan, nq, b):
+    """Walk a members-only grid as the kernel does (warp w of block blk
+    scores item blk * warps + w, items past nq * b return): every
+    (query, slot) item is scored exactly once."""
+    warps = plan.threads // 32
+    seen = [blk * warps + w for blk in range(plan.grid) for w in range(warps)]
+    return sorted(i for i in seen if i < nq * b) == list(range(nq * b))
+
+
 def test_launch_plan_main_path_is_one_chunk_of_five_pages_per_query():
     from repro_torch.core.config import MemoryMode, PageANNConfig
 
@@ -282,10 +291,12 @@ def test_launch_plan_main_path_is_one_chunk_of_five_pages_per_query():
     assert plan.smem_bytes == 32256 <= 48 * 1024
     assert plan.threads == 256               # 5 x 48 neighbour columns
     assert _blocks_cover_every_page_once(plan, 1000, 5)
-    # members only (MEM_ALL): one block per (query, page), no table
+    # members only (MEM_ALL): one warp per (query, page), four a block, no
+    # shared memory; the 5,000 warps fit in one wave of 132 SMs
     plan = _plan_for(dataclasses.replace(cfg, memory_mode=MemoryMode.MEM_ALL), 1000)
-    assert (plan.grid, plan.pages_per_block, plan.pages_per_chunk) == (5000, 1, 1)
-    assert plan.smem_bytes == (7 * 128 + 128) * 4
+    assert (plan.grid, plan.threads, plan.smem_bytes) == (1250, 128, 0)
+    assert (plan.pages_per_block, plan.pages_per_chunk) == (4, 1)
+    assert _warps_cover_every_item_once(plan, 1000, 5)
 
 
 def test_launch_plan_chunks_large_pages_within_shared_memory():
@@ -327,10 +338,31 @@ def test_launch_plan_raises_where_a_table_does_not_fit():
     plan = page_scan_k.launch_plan(8, 5, capacity=6, dim=128, rp=48, m=0,
                                    k=0, compute_adc=False)
     assert plan.smem_bytes <= page_scan_k.SMEM_LIMIT
-    # a members-only block scores one page
-    with pytest.raises(ValueError, match="one page a block"):
+    # a members-only warp scores one page; threads alone sets a block's
+    with pytest.raises(ValueError, match="one page a warp"):
         page_scan_k.launch_plan(8, 5, capacity=6, dim=128, rp=48, m=0, k=0,
                                 compute_adc=False, pages_per_block=5)
+
+
+@pytest.mark.parametrize("nq", [1, 64, 1000])
+@pytest.mark.parametrize("dim", [32, 128, 200, 384])
+@pytest.mark.parametrize("capacity", [1, 7, 33])
+def test_members_plan_scores_every_item_once(capacity, dim, nq):
+    """One warp per (query, slot) item, no shared memory, at most
+    MAX_THREADS a block; fewer warps a block while blocks are fewer than
+    the SMs; a threads override sets the warps and the grid follows."""
+    kw = dict(capacity=capacity, dim=dim, rp=48, m=0, k=0,
+              compute_adc=False, sms=132)
+    plan = page_scan_k.launch_plan(nq, 5, **kw)
+    for p in (plan, page_scan_k.launch_plan(nq, 5, threads=32, **kw),
+              page_scan_k.launch_plan(nq, 5, threads=256, **kw)):
+        assert p.threads % 32 == 0 and 32 <= p.threads <= page_scan_k.MAX_THREADS
+        assert (p.smem_bytes, p.pages_per_chunk) == (0, 1)
+        assert p.pages_per_block == p.threads // 32
+        assert p.grid == -(-nq * 5 // p.pages_per_block)
+        assert _warps_cover_every_item_once(p, nq, 5)
+    assert plan.threads // 32 <= page_scan_k.MEMBERS_WARPS
+    assert plan.grid >= min(132, nq * 5) or plan.threads == 32
 
 
 # ------------------------------------------------------------- dispatch

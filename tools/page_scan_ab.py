@@ -5,13 +5,17 @@
     python3 tools/page_scan_ab.py --base build/ab/base.cu
 
 ``--base`` is a ``page_scan.cu`` whose C entry ``pageann_page_scan`` takes
-no launch plan (the one-block-per-(query, page) kernel, which sizes its own
-grid); each ``--alt NAME=SRC`` a variant of the current one (same C entry).
-They are compiled with ``nvcc`` into ``build/page_scan_ab/``; the
-repository's kernels are built as usual. For each of the eight variants
-(ADC or members only, masked or not, by page id or staged) at the main
-path's HYBRID/MEM_ALL shapes (d = 128, b = 5) with Q = 1,000 and Q = 64, and
-at SIFT1M size (1,000,000 vectors of pages, Q = 1,024), the script
+the same launch plan as the current one; it is launched with the current
+ADC plan and, members only, with one 128-thread block per (query, page)
+that stages the query and the member rows in shared memory (grid Q * b,
+(d + member rows x 128) x 4 bytes, one page a block and a chunk), the plan
+of the block-per-page members kernel. Each ``--alt NAME=SRC`` is a variant
+of the current source, launched with the current plan. They are compiled
+with ``nvcc`` into ``build/page_scan_ab/``; the repository's kernels are
+built as usual. For each of the eight variants (ADC or members only, masked
+or not, by page id or staged) at the main path's HYBRID/MEM_ALL shapes
+(d = 128, b = 5) with Q = 1,000 and Q = 64, and at SIFT1M size (1,000,000
+vectors of pages, Q = 1,024), the script
 
   - requires the two kernels' member and neighbour scores to be equal
     (``torch.equal``), and exits 1 if any differ;
@@ -19,14 +23,18 @@ at SIFT1M size (1,000,000 vectors of pages, Q = 1,024), the script
     ``chip_smoke.py`` times), and the new kernel under other launch plans
     (pages per block, threads).
 
-One JSON line per measurement on standard output, then the card's name and
-power limit from ``nvidia-smi``. Needs one CUDA card.
+Then, where ``cuobjdump`` is found, the SASS instructions of each page-scan
+kernel of the base and the new build. One JSON line per measurement on
+standard output, then the card's name and power limit from
+``nvidia-smi``. Needs one CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -40,22 +48,72 @@ PLANS = {
             ("2 pages a block", dict(pages_per_block=2)),
             ("one block a query", dict(pages_per_block=64)),
             ("128 threads", dict(threads=128))],
-    "members": [("256 threads", dict(threads=256))],
+    "members": [("1 warp a block", dict(threads=32)),
+                ("2 warps a block", dict(threads=64)),
+                ("4 warps a block", dict(threads=128)),
+                ("8 warps a block", dict(threads=256))],
 }
 
 
-def build(src: Path, name: str, argtypes) -> ctypes.CDLL:
-    """``src`` compiled alone with the port's nvcc flags and loaded."""
+def build(src: Path, name: str) -> tuple[ctypes.CDLL, Path]:
+    """``src`` compiled alone with the port's nvcc flags and loaded; the
+    compiler's output (registers and spills a kernel) goes beside the
+    library as ``.log``."""
     from repro_torch.kernels import _build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     lib = OUT_DIR / f"libpage_scan_{name}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    str(lib), str(src)], check=True, capture_output=True)
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                           "-o", str(lib), str(src)], check=True,
+                          capture_output=True, text=True)
+    Path(str(lib) + ".log").write_text(done.stdout + done.stderr)
     dll = ctypes.CDLL(str(lib))
-    dll.pageann_page_scan.argtypes = argtypes
+    dll.pageann_page_scan.argtypes = _build._SIGNATURES["pageann_page_scan"]
     dll.pageann_page_scan.restype = ctypes.c_int
-    return dll
+    return dll, lib
+
+
+def sass_counts(lib: Path) -> dict:
+    """SASS instructions of each page-scan kernel in ``lib`` (demangled
+    name -> count), from ``cuobjdump -sass``; empty without cuobjdump."""
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).is_file():
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[name] += 1
+    filt = Path(tool).with_name("cu++filt")
+    if filt.is_file() and counts:
+        names = subprocess.run([str(filt)], input="\n".join(counts),
+                               capture_output=True, text=True).stdout.split("\n")
+        counts = dict(zip(names, counts.values()))
+    return {n: c for n, c in counts.items() if "page_scan" in n}
+
+
+def base_plan(nq, b, *, cap, dim, rp, m, k, adc):
+    """The base kernel's plan: the current one with ADC; members only, one
+    128-thread block per (query, page) staging the query and the member
+    rows."""
+    from repro_torch.kernels import page_scan as page_scan_k
+    from repro_torch.kernels import record_layout as rl
+
+    if adc:
+        return page_scan_k.launch_plan(nq, b, capacity=cap, dim=dim, rp=rp,
+                                       m=m, k=k, compute_adc=True)
+    return page_scan_k.LaunchPlan(
+        grid=nq * b, threads=128,
+        smem_bytes=(dim + rl.member_rows(cap, dim) * rl.PAGE_LANES) * 4,
+        pages_per_block=1, pages_per_chunk=1)
 
 
 def base_scan(dll, recs, ids, q, lut, mask, *, cap, dim, rp, adc, staged):
@@ -68,6 +126,7 @@ def base_scan(dll, recs, ids, q, lut, mask, *, cap, dim, rp, adc, staged):
     md = torch.empty((nq, b, cap), device=q.device)
     nd = torch.empty((nq, b, rp), device=q.device) if adc else None
     m, k = lut.shape[1:] if adc else (0, 0)
+    plan = base_plan(nq, b, cap=cap, dim=dim, rp=rp, m=m, k=k, adc=adc)
     rc = dll.pageann_page_scan(
         recs.data_ptr(), None if staged else ids.data_ptr(), q.data_ptr(),
         lut.data_ptr() if adc else None,
@@ -75,7 +134,7 @@ def base_scan(dll, recs, ids, q, lut, mask, *, cap, dim, rp, adc, staged):
         nd.data_ptr() if adc else None, nq, b,
         nq * b if staged else recs.shape[0], recs.shape[-2],
         rl.member_rows(cap, dim), m, k, cap, dim, rp, int(adc), int(staged),
-        torch.cuda.current_stream().cuda_stream)
+        *plan, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"base kernel launch failed: cudaError {rc}")
     return md, nd
@@ -163,7 +222,8 @@ def compare(smoke, dll, alts, recs, ids, q, lut, *, cap, dim, rp, adc, label,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", type=Path, required=True,
-                    help="a page_scan.cu with the plan-less C entry")
+                    help="a page_scan.cu with the current C entry, run "
+                         "with the block-per-page members plan")
     ap.add_argument("--alt", action="append", default=[],
                     metavar="NAME=SRC",
                     help="also time a page_scan.cu with the current C entry "
@@ -183,13 +243,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
 
     _build.library()
-    dll = build(args.base, "base", [ctypes.c_void_p] * 7
-                + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-    alts = {}
+    dll, base_lib = build(args.base, "base")
+    alts, libs = {}, {"base": base_lib, "new": _build.library_path()}
     for spec in args.alt:
         name, src = spec.split("=", 1)
-        alts[name] = build(Path(src), name,
-                           _build._SIGNATURES["pageann_page_scan"])
+        alts[name], libs[name] = build(Path(src), name)
     smoke = cs.Smoke(torch, args.seed)
     dev = torch.device("cuda")
     ok = True
@@ -223,6 +281,9 @@ def main(argv=None) -> int:
                       adc=adc, label="sift1m", reps=20)
         del recs
         torch.cuda.empty_cache()
+    for label, lib in libs.items():
+        print(json.dumps(dict(sass=label, instructions=sass_counts(lib))),
+              flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
