@@ -34,9 +34,13 @@ version. Phases, one JSON line each:
             load (resident and under the budget); then a compaction that
             an insert triggers on a 1,000-vector index
 
-The kernels phase also holds ``l2_distance`` (the delta scan) and
-``page_gather_l2`` against their plain versions, and the sift1m phase runs
-one delta scan over 262,144 vectors. Each kernel's launches come from the
+The kernels phase also holds ``l2_distance`` (the delta scan, with and
+without its keep mask) and ``page_gather_l2`` against their plain versions,
+and ``pq_adc`` both as the path calls it (``pq_adc_gather``: the code rows
+read by id inside the kernel) and on codes gathered first; the sift1m phase
+runs one delta scan over 262,144 vectors and the re-score over 1,000,000
+code rows. The compaction must equal a fresh build of the merged set in
+every array and search output. Each kernel's launches come from the
 path it serves, counted from 0 just before that path's run; the only path of
 ``page_gather_l2`` is its own entry point ``ops.page_gather_l2``, driven once
 in the kernels phase. Then one ``{"kernels": [...]}`` line, the
@@ -63,6 +67,7 @@ SRC = ROOT / "src"
 SCRATCH = ROOT / "build" / "smoke_tmp"   # temporary artifacts (gitignored)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+INF = float("inf")
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-4     # float kernels: the summation order differs
 N_QUERIES = 1000            # one search batch, as a serving engine would send
@@ -381,6 +386,47 @@ def _pq_adc_case(s: Smoke, codes, lut, reps: int) -> dict:
     )
 
 
+def _pq_adc_gather_case(s: Smoke, table, ids, lut, reps: int) -> dict:
+    """``pq_adc_gather``, the path's call (each code row read by id inside
+    the kernel), against its plain version and, bit for bit, against the
+    ``pq_adc`` kernel on the codes gathered first; that unfused pair (a
+    PyTorch gather, then the kernel) is timed beside it. No single PyTorch
+    call computes the fused function, so ``library_ms`` is null; the
+    pre-gathered case's ``embedding_bag`` is the yardstick of the sum."""
+    torch = s.torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as pq_adc_k
+
+    got = ops.pq_adc_gather(table, ids, lut)
+    err = s.compare("pq_adc", got,
+                    ops.pq_adc_gather(table, ids, lut, impl="plain"))
+    if not torch.equal(got, ops.pq_adc(table[ids], lut)):
+        raise AssertionError("pq_adc_gather: differs from the pq_adc kernel "
+                             "on the same codes gathered first")
+    nq, n = ids.shape
+    m, k = table.shape[1], lut.shape[2]
+    rows = int(torch.unique(ids).numel())
+    plan = pq_adc_k.launch_plan(nq, n, m, k)
+    # each query's table, each id, each distinct code row, the output
+    bytes_ = lut.numel() * 4 + ids.numel() * ids.element_size() + rows * m \
+        + nq * n * 4
+    return dict(
+        name="pq_adc", entry="pq_adc_gather", q=nq, n=n, m=m, k=k,
+        table_rows=table.shape[0], distinct_rows=rows, max_abs_err=err,
+        plan=plan._asdict(),
+        blocks_per_sm=pq_adc_k.blocks_per_sm(plan.threads, plan.smem_bytes),
+        ms=s.time_ms(lambda: ops.pq_adc_gather(table, ids, lut), reps),
+        call_ms=s.call_ms(lambda: ops.pq_adc_gather(table, ids, lut), reps),
+        gather_then_kernel_ms=s.time_ms(
+            lambda: ops.pq_adc(table[ids], lut), reps),
+        plain_ms=s.time_ms(
+            lambda: ops.pq_adc_gather(table, ids, lut, impl="plain"),
+            max(3, reps // 5)),
+        **_bound(bytes_, nq * n * m),
+        library_ms=None,
+    )
+
+
 def _hamming_case(s: Smoke, codes, qcodes) -> dict:
     from repro_torch.kernels import ops
 
@@ -405,38 +451,50 @@ def l2_atol(q, x) -> float:
     return L2_ATOL_PER_NORM * float((q * q).sum(-1).max() + (x * x).sum(-1).max())
 
 
-def _l2_bound(nq: int, n: int, d: int) -> dict:
-    """Both inputs read once, the (Q, N) output written once; the product's
-    2 Q N d flops, the norms' 2 (Q + N) d and the epilogue's 3 Q N."""
-    return _bound((nq * d + n * d + nq * n) * 4,
+def _l2_bound(nq: int, n: int, d: int, keep: bool = False) -> dict:
+    """Both inputs (and the keep mask) read once, the (Q, N) output written
+    once; the product's 2 Q N d flops, the norms' 2 (Q + N) d and the
+    epilogue's 3 Q N."""
+    return _bound((nq * d + n * d + nq * n) * 4 + (n if keep else 0),
                   2 * nq * n * d + 2 * (nq + n) * d + 3 * nq * n)
 
 
-def _l2_case(s: Smoke, q, x, reps: int) -> dict:
-    """``l2_distance`` against its plain version, with the library call
-    ``torch.cdist`` (matrix-product mode, TF32 off; it also takes a square
-    root) timed beside it as the yardstick."""
+def _l2_case(s: Smoke, q, x, reps: int, keep=None) -> dict:
+    """``l2_distance`` (with the delta scan's ``keep`` mask when given)
+    against its plain version, with the library call ``torch.cdist``
+    (matrix-product mode, TF32 off; it also takes a square root and has no
+    mask) timed beside it as the yardstick. With ``keep`` the masked output
+    must be the unmasked one with +inf in the dropped columns."""
     torch = s.torch
+    from repro_torch.kernels import l2_distance as l2_distance_k
     from repro_torch.kernels import ops
 
     atol = l2_atol(q, x)
-    got = ops.l2_distance(q, x)
-    err = s.compare("l2_distance", got, ops.l2_distance(q, x, impl="plain"),
-                    atol=atol)
+    got = ops.l2_distance(q, x, keep)
+    err = s.compare("l2_distance", got,
+                    ops.l2_distance(q, x, keep, impl="plain"), atol=atol)
+    if keep is not None and not torch.equal(
+            got, torch.where(keep[None, :], ops.l2_distance(q, x), INF)):
+        raise AssertionError("l2_distance: the keep mask changed more than "
+                             "the dropped columns")
 
     def library():
         return torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist")
 
     # the yardstick computes the same function up to its square root
-    torch.testing.assert_close(library() ** 2, got.clamp_min(0.0),
-                               rtol=1e-4, atol=4 * atol)
+    lib = library() ** 2
+    if keep is not None:
+        lib = torch.where(keep[None, :], lib, INF)
+    torch.testing.assert_close(lib, got.clamp_min(0.0), rtol=1e-4, atol=4 * atol)
     (nq, d), n = q.shape, x.shape[0]
     return dict(
-        name="l2_distance", q=nq, n=n, dim=d, atol=atol, max_abs_err=err,
-        ms=s.time_ms(lambda: ops.l2_distance(q, x), reps),
-        call_ms=s.call_ms(lambda: ops.l2_distance(q, x), reps),
-        plain_ms=s.time_ms(lambda: ops.l2_distance(q, x, impl="plain"), reps),
-        **_l2_bound(nq, n, d),
+        name="l2_distance", q=nq, n=n, dim=d, keep=keep is not None, atol=atol,
+        max_abs_err=err, blocks_per_sm=l2_distance_k.blocks_per_sm(),
+        ms=s.time_ms(lambda: ops.l2_distance(q, x, keep), reps),
+        call_ms=s.call_ms(lambda: ops.l2_distance(q, x, keep), reps),
+        plain_ms=s.time_ms(lambda: ops.l2_distance(q, x, keep, impl="plain"),
+                           reps),
+        **_l2_bound(nq, n, d, keep is not None),
         library_ms=s.time_ms(library, reps),
     )
 
@@ -552,16 +610,25 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
     nids = torch.as_tensor(rng.integers(0, n_mem, (n_queries, b * rp))).to(dev)
     lut_mem = torch.as_tensor(
         rng.random((n_queries, m_mem, 256)).astype(np.float32)).to(dev)
-    row = _pq_adc_case(s, mem_codes[nids].contiguous(), lut_mem, 50)
+    # the HYBRID re-score as the path calls it (the fused gather), then the
+    # same sums on the codes gathered first
+    row = _pq_adc_gather_case(s, mem_codes, nids, lut_mem, 50)
     s.rows["pq_adc"] = row
     cases.append(row)
+    cases.append(_pq_adc_case(s, mem_codes[nids].contiguous(), lut_mem, 50))
+    # the entry estimates: T rows of the LSH sample's codes a query, ids the
+    # first T columns of a sorted (Q, S) index matrix, as the path has them
     entries = cfg_hybrid.lsh_entries
     m_disk = cfg_hybrid.pq_subspaces
-    codes = torch.as_tensor(rng.integers(
-        0, 256, (n_queries, entries, m_disk)).astype(np.uint8)).to(dev)
+    sample = cfg_hybrid.lsh_sample
+    lsh_pq = torch.as_tensor(rng.integers(
+        0, 256, (sample, m_disk)).astype(np.uint8)).to(dev)
+    top = torch.sort(torch.as_tensor(rng.random((n_queries, sample))).to(dev),
+                     dim=1).indices[:, :entries]
     lut_disk = torch.as_tensor(
         rng.random((n_queries, m_disk, 256)).astype(np.float32)).to(dev)
-    cases.append(_pq_adc_case(s, codes, lut_disk, 50))
+    cases.append(_pq_adc_gather_case(s, lsh_pq, top, lut_disk, 50))
+    cases.append(_pq_adc_case(s, lsh_pq[top].contiguous(), lut_disk, 50))
 
     words = cfg_hybrid.lsh_bits // 32
     lsh = torch.as_tensor(rng.integers(
@@ -587,13 +654,17 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
         qt = torch.as_tensor(qv.astype(np.float32)).to(dev)
         row = _l2_case(s, qt, xt, 50)
         self_d = float(ops.l2_distance(qt[:1], xt[:1])[0, 0])
-        if abs(self_d) > row["atol"]:
+        if self_d != 0.0:
             raise AssertionError(f"l2_distance: a self-match scores {self_d}, "
-                                 f"beyond the stated tolerance {row['atol']}")
+                                 "not 0")
         row["self_match"] = self_d
-        if dim == 128:
-            s.rows["l2_distance"] = row
         cases.append(row)
+        if dim == 128:
+            # the delta scan's call: about 90% of the rows live
+            keep = torch.as_tensor(rng.random(c_pad) < 0.9).to(dev)
+            keep[0] = True
+            s.rows["l2_distance"] = _l2_case(s, qt, xt, 50, keep=keep)
+            cases.append(s.rows["l2_distance"])
     for row in cases:
         emit("kernels", **row)
 
@@ -636,6 +707,8 @@ def phase_sift1m(s: Smoke, cfg_hybrid, cfg_memall) -> None:
     nids = torch.randint(0, n_mem, (nq, b * rp), generator=gen, device=dev)
     lut = torch.rand((nq, 32, 256), generator=gen, device=dev)
     emit("sift1m", mem_codes_bytes=mem_codes.numel(),
+         **_pq_adc_gather_case(s, mem_codes, nids, lut, 20))
+    emit("sift1m", mem_codes_bytes=mem_codes.numel(),
          **_pq_adc_case(s, mem_codes[nids].contiguous(), lut, 20))
     words = cfg_hybrid.lsh_bits // 32
     lsh = torch.randint(-2**31, 2**31 - 1, (cfg_hybrid.lsh_sample, words),
@@ -662,7 +735,7 @@ def _sift1m_delta_scan(s: Smoke, gen) -> None:
     x = torch.randn((c, d), generator=gen, device=dev)
     q = torch.randn((nq, d), generator=gen, device=dev)
     live = torch.rand((c,), generator=gen, device=dev) < 0.9
-    row = _l2_case(s, q, x, 5)
+    row = _l2_case(s, q, x, 5, keep=live)
     dist, slots = ops.delta_scan(q, x, live, k)
     pdist, pslots = ops.delta_scan(q, x, live, k, impl="plain")
     torch.testing.assert_close(dist, pdist, rtol=RTOL, atol=row["atol"])
@@ -673,15 +746,26 @@ def _sift1m_delta_scan(s: Smoke, gen) -> None:
     if not bool(live[slots.long()].all()):
         raise AssertionError("sift1m delta scan: a dead row was returned")
     full = ops.l2_distance(q, x)
+    masked = ops.l2_distance(q, x, live)
 
-    def topk():
-        dd = torch.where(live[None, :], full, float("inf"))
+    def unfused():
+        # the yardstick of the fused mask: the distances, a separate mask
+        # pass, the sort
+        dd = torch.where(live[None, :], ops.l2_distance(q, x), INF)
         vals, idx = torch.sort(dd, dim=-1, stable=True)
         return vals[:, :k], idx[:, :k]
 
+    want_d, want_s = unfused()
+    if not (torch.equal(want_d, dist)
+            and torch.equal(want_s.to(torch.int32), slots)):
+        raise AssertionError("sift1m delta scan: the masked kernel's top-k "
+                             "differs from the separate mask pass's")
     emit("sift1m", delta_bytes=x.numel() * 4, ids_agree_share=agree,
-         topk_ms=s.time_ms(topk, 3),
+         sort_ms=s.time_ms(lambda: torch.sort(masked, dim=-1, stable=True), 3),
+         mask_pass_ms=s.time_ms(
+             lambda: torch.where(live[None, :], full, INF), 3),
          scan_ms=s.time_ms(lambda: ops.delta_scan(q, x, live, k), 3),
+         unfused_scan_ms=s.time_ms(unfused, 3),
          plain_scan_ms=s.time_ms(
              lambda: ops.delta_scan(q, x, live, k, impl="plain"), 3),
          **row)
@@ -1248,11 +1332,16 @@ def run_compaction(cfg, *, device: str, seed: int,
                    label: str = "compaction") -> dict:
     """Compaction on a small mutable index: a base of N_COMPACT_BASE
     vectors, 5% of them deleted, then inserts past ``compact_fraction`` (0.21
-    of the live base, then 0.32) so the insert itself compacts. The rebuilt index is held to a fresh build over the
-    merged set: recall@10 against the merged set's brute force within 0.005
-    (the PQ k-means sums with atomics on the card, so two builds of the same
-    data may differ in the last bits)."""
+    of the live base, then 0.32) so the insert itself compacts. The rebuilt
+    index is held to a fresh build over the merged set on the same device:
+    every array the search reads (codebooks, codes, page records and
+    neighbours, LSH planes, samples and codes) equal with ``torch.equal``,
+    and the search's ids (translated to external ids), distances, I/Os,
+    hops and cache hits equal exactly; its recall@10 against the merged
+    set's brute force within 0.005 of the fresh build's. Raises naming
+    every field that differs."""
     import numpy as np
+    import torch
 
     from repro_torch.core import MutableIndex, PageANNIndex, recall_at_k
     from repro_torch.core.vamana import brute_force_knn
@@ -1285,14 +1374,25 @@ def run_compaction(cfg, *, device: str, seed: int,
     want = fresh.search(q, k=10)
     want_ids = np.where(want.ids >= 0, ids[np.maximum(want.ids, 0)], -1)
     recall, fresh_recall = recall_at_k(got.ids, truth), recall_at_k(want_ids, truth)
+    differ = [f"data.{f}" for f in fresh.data._fields
+              if not torch.equal(getattr(m.base.data, f),
+                                 getattr(fresh.data, f))]
+    differ += [f"search.{f}" for f in got._fields
+               if not np.array_equal(getattr(got, f),
+                                     want_ids if f == "ids" else getattr(want, f))]
     out = dict(n_base=n, deletes=n_del, inserts=n_new,
                generation_before=gen_before,
                generation=m.generation, delta_fraction_before=fraction_before,
                compact_s=compact_s, base_build_s=base_build_s,
                fresh_build_s=fresh_build_s, recall_at_10=recall,
                fresh_recall_at_10=fresh_recall,
-               ids_equal_fresh_share=float((got.ids == want_ids).all(1).mean()))
+               ids_equal_fresh_share=float((got.ids == want_ids).all(1).mean()),
+               fields_compared=len(fresh.data._fields) + len(got._fields),
+               fields_differing=differ)
     emit(label, **out)
+    if differ:
+        raise AssertionError(f"{label}: the compacted index differs from a "
+                             f"fresh build of the merged set in {differ}")
     if abs(recall - fresh_recall) > 0.005:
         raise AssertionError(f"{label}: recall {recall:.4f} after compaction, "
                              f"{fresh_recall:.4f} for a fresh build")

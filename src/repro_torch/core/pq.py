@@ -28,12 +28,20 @@ def _sq_dists(sub: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
 def _kmeans_1sub(xsub: torch.Tensor, init: torch.Tensor, *, ksub: int,
                  iters: int) -> torch.Tensor:
     """Lloyd k-means for one PQ subspace. xsub: (N, dsub), init: (ksub,)
-    row ids of the starting centroids."""
+    row ids of the starting centroids.
+
+    Each centroid's members are summed one after another in row order (a
+    stable sort by assignment, then a segment sum): no atomic adds, so two
+    same-seed trainings on the card give the same bits, and the CPU's sums
+    are those of a serial scatter-add. The reference's one-hot product sums
+    the same members in another order."""
     cents = xsub[init]
     for _ in range(iters):
         assign = _sq_dists(xsub, cents).argmin(1)
-        counts = torch.bincount(assign, minlength=ksub).to(xsub.dtype)
-        sums = torch.zeros_like(cents).index_add_(0, assign, xsub)
+        counts = torch.bincount(assign, minlength=ksub)
+        order = torch.sort(assign, stable=True).indices
+        sums = torch.segment_reduce(xsub[order], "sum", lengths=counts, axis=0)
+        counts = counts.to(xsub.dtype)
         cents = torch.where(
             counts[:, None] > 0, sums / counts.clamp(min=1)[:, None], cents
         )

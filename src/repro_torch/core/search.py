@@ -169,7 +169,7 @@ def init_state(
     ham = ops.hamming(data.lsh_codes, qcode, impl=impl)          # (Q, S)
     _, top = _top_k_merge(ham.to(torch.float32), entries)
     entry_ids = data.lsh_ids[top].to(torch.int32)               # (Q, T)
-    entry_d = ops.pq_adc(data.lsh_pq[top], disk_lut, impl=impl)  # (Q, T)
+    entry_d = ops.pq_adc_gather(data.lsh_pq, top, disk_lut, impl=impl)  # (Q, T)
     entry_d = _mask_dups_keep_first(entry_ids, entry_d)
 
     cand_ids = torch.full((nq, beam), PAD, dtype=torch.int32, device=dev)
@@ -401,9 +401,10 @@ def score_page_batch(
     if mode == MemoryMode.DISK_ONLY.value:
         est = est_disk.reshape(nq, b * rp)
     elif mode == MemoryMode.MEM_ALL.value:
-        est = ops.pq_adc(data.mem_codes[safe_nids], mem_lut, impl=impl)
+        est = ops.pq_adc_gather(data.mem_codes, safe_nids, mem_lut, impl=impl)
     else:  # HYBRID: prefer the higher-accuracy in-memory codes
-        est_mem = ops.pq_adc(data.mem_codes[safe_nids], mem_lut, impl=impl)
+        est_mem = ops.pq_adc_gather(data.mem_codes, safe_nids, mem_lut,
+                                    impl=impl)
         est = torch.where(data.mem_mask[safe_nids], est_mem,
                           est_disk.reshape(nq, b * rp))
     est = torch.where(valid_n, est, INF)

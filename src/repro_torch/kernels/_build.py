@@ -36,9 +36,11 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
     "pageann_page_scan": [_P] * 7 + [_I] * 17 + [_P],
-    "pageann_pq_adc": [_P] * 3 + [_I] * 4 + [_P],
+    "pageann_pq_adc": [_P] * 4 + [_I] * 8 + [_P],
+    "pageann_pq_adc_blocks_per_sm": [_I] * 2 + [_P],
     "pageann_hamming": [_P] * 3 + [_I] * 3 + [_P],
-    "pageann_l2_distance": [_P] * 3 + [_I] * 3 + [_P],
+    "pageann_l2_distance": [_P] * 4 + [_I] * 3 + [_P],
+    "pageann_l2_distance_blocks_per_sm": [_P],
     "pageann_page_gather_l2": [_P] * 4 + [_I] * 5 + [_P],
 }
 

@@ -21,8 +21,6 @@ from repro_torch.kernels import pq_adc as pq_adc_k
 reset_launch_counts = _build.reset_launch_counts
 launch_counts = _build.launch_counts
 
-INF = float("inf")
-
 
 def _use_kernel(impl: str | None, t: torch.Tensor) -> bool:
     if impl is None:
@@ -48,12 +46,25 @@ def pq_adc(codes: torch.Tensor, lut: torch.Tensor, *,
     return ref.pq_adc_ref(codes, lut)
 
 
-def l2_distance(q: torch.Tensor, x: torch.Tensor, *,
+def pq_adc_gather(table: torch.Tensor, ids: torch.Tensor, lut: torch.Tensor,
+                  *, impl: str | None = None) -> torch.Tensor:
+    """(R, M) uint8 code table, (Q, N) int row ids in [0, R), (Q, M, K) f32
+    tables -> (Q, N) f32, ``pq_adc(table[ids], lut)``: the kernel reads each
+    row by id, so the gathered codes are never written."""
+    if _use_kernel(impl, table):
+        return pq_adc_k.pq_adc_gather(table.contiguous(), ids,
+                                      lut.contiguous())
+    return ref.pq_adc_gather_ref(table, ids, lut)
+
+
+def l2_distance(q: torch.Tensor, x: torch.Tensor,
+                keep: torch.Tensor | None = None, *,
                 impl: str | None = None) -> torch.Tensor:
-    """(Q, d), (N, d) -> (Q, N) f32 squared L2, ``(|q|^2 - 2 q.x) + |x|^2``."""
+    """(Q, d), (N, d), (N,) bool or None -> (Q, N) f32 squared L2,
+    ``(|q|^2 - 2 q.x) + |x|^2``, ``+inf`` where ``keep`` is false."""
     if _use_kernel(impl, q):
-        return l2_distance_k.l2_distance(q, x)
-    return ref.l2_distance_ref(q, x)
+        return l2_distance_k.l2_distance(q, x, keep)
+    return ref.l2_distance_ref(q, x, keep)
 
 
 def page_gather_l2(pages: torch.Tensor, page_ids: torch.Tensor,
@@ -73,15 +84,14 @@ def delta_scan(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
     """Brute-force scan of the mutable index's in-memory delta tier.
 
     q: (Q, d) f32 queries, vecs: (C, d) f32 delta rows, live: (C,) bool.
-    The distances go through ``l2_distance``; rows that are dead, or fail
-    the filter ``mask`` (C,) bool, score ``+inf``; the per-query ascending
-    top-k is a stable sort, lower row first on ties (``lax.top_k``'s
-    order). Returns (dists (Q, k) f32, slots (Q, k) int32 rows of
-    ``vecs``); non-finite entries mean fewer than k live rows.
+    The distances go through ``l2_distance``, whose epilogue scores rows
+    that are dead, or fail the filter ``mask`` (C,) bool, ``+inf``; the
+    per-query ascending top-k is a stable sort, lower row first on ties
+    (``lax.top_k``'s order). Returns (dists (Q, k) f32, slots (Q, k) int32
+    rows of ``vecs``); non-finite entries mean fewer than k live rows.
     """
-    d = l2_distance(q, vecs, impl=impl)
     keep = live if mask is None else live & mask
-    d = torch.where(keep[None, :], d, INF)
+    d = l2_distance(q, vecs, keep, impl=impl)
     vals, slots = torch.sort(d, dim=-1, stable=True)
     return vals[:, :k], slots[:, :k].to(torch.int32)
 

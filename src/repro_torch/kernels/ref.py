@@ -34,8 +34,10 @@ def hamming_ref(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
     return pc.sum(-1).to(torch.int32)
 
 
-def l2_distance_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Squared L2 distances. q: (Q, d), x: (N, d) -> (Q, N) f32.
+def l2_distance_ref(q: torch.Tensor, x: torch.Tensor,
+                    keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Squared L2 distances. q: (Q, d), x: (N, d), keep: (N,) bool or None
+    -> (Q, N) f32, ``+inf`` in the columns where ``keep`` is false.
 
     The expanded form of ``repro.kernels.ref.l2_distance_ref`` in its
     evaluation order, ``(|q|^2 - 2 q.x) + |x|^2``. It is not exact at zero:
@@ -45,11 +47,14 @@ def l2_distance_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """
     q = q.to(torch.float32)
     x = x.to(torch.float32)
-    return (
+    d = (
         (q * q).sum(-1)[:, None]
         - 2.0 * q @ x.T
         + (x * x).sum(-1)[None, :]
     )
+    if keep is None:
+        return d
+    return torch.where(keep[None, :], d, float("inf"))
 
 
 def page_gather_l2_ref(pages: torch.Tensor, page_ids: torch.Tensor,
@@ -70,6 +75,14 @@ def pq_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     f32, the sum over subspaces j of ``lut[q, j, codes[q, n, j]]``."""
     idx = codes.to(torch.int64).transpose(1, 2)        # (Q, M, N)
     return lut.gather(2, idx).sum(1)                   # (Q, N)
+
+
+def pq_adc_gather_ref(table: torch.Tensor, ids: torch.Tensor,
+                      lut: torch.Tensor) -> torch.Tensor:
+    """ADC distance of code rows read by id. table: (R, M) uint8, ids:
+    (Q, N) int (in [0, R)), lut: (Q, M, K) f32 -> (Q, N) f32, ``pq_adc_ref``
+    on the gathered codes ``table[ids]``."""
+    return pq_adc_ref(table[ids.long()], lut)
 
 
 def page_scan_recs_ref(

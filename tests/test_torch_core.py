@@ -219,6 +219,53 @@ def test_train_pq_codebooks_quantize_as_well_as_the_reference(data):
     assert mse(bt) <= 1.05 * mse(bj), (mse(bt), mse(bj))
 
 
+def test_train_pq_same_seed_same_books_and_codes_match_the_reference(
+        data, record_property):
+    """Two same-seed trainings give the same codebooks, and the reference
+    encodes with the port's books as the port does: equal codes apart from
+    counted expanded-norm near-ties (0 on this fixture)."""
+    x, _ = data
+    bt = tpq.train_pq(x, 8, 256, 4, seed=0, device="cpu")
+    np.testing.assert_array_equal(
+        bt, tpq.train_pq(x, 8, 256, 4, seed=0, device="cpu"))
+    want = np.asarray(jpq.pq_encode(jnp.asarray(x), jnp.asarray(bt)))
+    got = tpq.pq_encode(torch.as_tensor(x), torch.as_tensor(bt)).numpy()
+    diff = np.argwhere(got != want)
+    record_property("pq_code_mismatches", len(diff))
+    dsub = D // 8
+    for n, j in diff:
+        sub = x[n, j * dsub:(j + 1) * dsub]
+        dj = ((sub - bt[j, want[n, j]]) ** 2).sum()
+        dt = ((sub - bt[j, got[n, j]]) ** 2).sum()
+        assert abs(dj - dt) <= 1e-4 * max(1.0, dj), (n, j, dj, dt)
+    assert len(diff) <= 0.001 * got.size
+
+
+@pytest.mark.parametrize("ksub", [16, 256])
+def test_kmeans_sums_each_centroid_serially_in_row_order(data, ksub):
+    """A Lloyd step's centroid sums are a serial float32 sum over the
+    members in row order (numpy's unbuffered ``add.at``): no atomic adds,
+    so the card's sums do not depend on scheduling. Exact."""
+    import inspect
+
+    x, _ = data
+    xsub = x[:, :4].copy()
+    init = np.random.default_rng(ksub).permutation(len(xsub))[:ksub]
+    got = tpq._kmeans_1sub(torch.as_tensor(xsub), torch.as_tensor(init),
+                           ksub=ksub, iters=1).numpy()
+    cents = xsub[init]
+    assign = tpq._sq_dists(torch.as_tensor(xsub),
+                           torch.as_tensor(cents)).argmin(1).numpy()
+    sums = np.zeros_like(cents)
+    np.add.at(sums, assign, xsub)
+    counts = np.bincount(assign, minlength=ksub).astype(np.float32)
+    want = np.where(counts[:, None] > 0,
+                    sums / np.maximum(counts, 1)[:, None], cents)
+    np.testing.assert_array_equal(got, want)
+    src = inspect.getsource(tpq._kmeans_1sub)
+    assert not any(op in src for op in ("index_add", "scatter_add", "index_put"))
+
+
 # ------------------------------------------------------------ Vamana
 def test_greedy_search_batch_matches(data, graph):
     x, _ = data

@@ -264,6 +264,83 @@ def test_pq_adc_kernel_matches_plain(cuda):
                                    rtol=1e-5, atol=1e-4)
 
 
+# rows a query for pq_adc_gather: one, the entry estimates' 16, the
+# HYBRID re-score's 240, 257 (a thread with two rows); M from 8 to 33 (16-byte
+# code rows and byte rows), K below 256, (9, 17): a table of 153 floats goes
+# by the plain copy loop
+GATHER_N = [1, 16, 240, 257]
+GATHER_MK = [(8, 256), (16, 256), (32, 256), (33, 200), (32, 100), (9, 17)]
+
+
+def adc_serial(table, ids, lut):
+    """The kernel's sum in numpy: one float32 accumulator a row, adding
+    lut[q, j, min(code, K - 1)] for j = 0 .. M-1 in order."""
+    codes = np.minimum(table[ids], lut.shape[2] - 1).astype(np.int64)
+    qi = np.arange(len(ids))[:, None]
+    acc = np.zeros(ids.shape, np.float32)
+    for j in range(table.shape[1]):
+        acc = acc + lut[qi, j, codes[:, :, j]]
+    return acc
+
+
+def _misaligned(t, cuda):
+    """A copy of ``t`` on the card whose data starts one element past an
+    allocation's start (not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", GATHER_MK)
+@pytest.mark.parametrize("n", GATHER_N)
+def test_pq_adc_gather_kernel_matches_plain(cuda, n, m, k):
+    """The fused gather against its plain version (rtol 1e-5, atol 1e-4:
+    the plain version sums in another order) and bit for bit against a
+    serial float32 sum, the pre-gathered ``pq_adc`` kernel, int32 and
+    strided ids, and misaligned tables (the byte and plain-loop paths).
+    Each call is one ``pq_adc`` launch and nothing else."""
+    rng = np.random.default_rng(n * 100 + m + k)
+    nq, r = 37, 500
+    table = rng.integers(0, k, (r, m)).astype(np.uint8)
+    ids = rng.integers(0, r, (nq, n + 3))
+    lut = rng.random((nq, m, k)).astype(np.float32)
+    want = adc_serial(table, ids[:, :n], lut)
+    tt, tl = (torch.as_tensor(a).to(cuda) for a in (table, lut))
+    wide = torch.as_tensor(ids).to(cuda)
+    ti = wide[:, :n].contiguous()
+    before = ops.launch_counts()
+    got = ops.pq_adc_gather(tt, ti, tl)
+    after = ops.launch_counts()
+    assert after["pq_adc"] == before["pq_adc"] + 1
+    assert {k_: v for k_, v in after.items() if k_ != "pq_adc"} == \
+        {k_: v for k_, v in before.items() if k_ != "pq_adc"}
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    torch.testing.assert_close(got, ops.pq_adc_gather(tt, ti, tl, impl="plain"),
+                               rtol=1e-5, atol=1e-4)
+    for other in (ops.pq_adc(tt[ti], tl),
+                  ops.pq_adc_gather(tt, ti.to(torch.int32), tl),
+                  ops.pq_adc_gather(tt, wide[:, :n], tl),
+                  ops.pq_adc_gather(_misaligned(tt, cuda), ti, tl),
+                  ops.pq_adc_gather(tt, ti, _misaligned(tl, cuda))):
+        assert torch.equal(other, got)
+
+
+@pytest.mark.cuda
+def test_pq_adc_kernel_clamps_codes_to_k(cuda):
+    """Codes at or past K read the table's last column, in both entry
+    points (exact against the serial sum)."""
+    rng = np.random.default_rng(9)
+    table = rng.integers(0, 256, (300, 32)).astype(np.uint8)
+    ids = rng.integers(0, 300, (50, 240))
+    lut = rng.random((50, 32, 100)).astype(np.float32)
+    want = adc_serial(table, ids, lut)
+    tt, ti, tl = (torch.as_tensor(a).to(cuda) for a in (table, ids, lut))
+    np.testing.assert_array_equal(ops.pq_adc_gather(tt, ti, tl).cpu().numpy(), want)
+    np.testing.assert_array_equal(ops.pq_adc(tt[ti], tl).cpu().numpy(), want)
+
+
 @pytest.mark.cuda
 def test_hamming_kernel_matches_plain_exactly(cuda):
     rng = np.random.default_rng(1)
@@ -289,6 +366,61 @@ def test_l2_distance_kernel_matches_plain(cuda, nq, n, d):
                              impl="plain")
     torch.testing.assert_close(got16, want16, rtol=1e-5,
                                atol=l2_atol(q.cpu(), x.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,d", L2_CASES + [(1000, 4096, 128)])
+def test_l2_distance_keep_kernel_matches_plain(cuda, nq, n, d):
+    """The keep mask in the epilogue: +inf exactly where keep is false, the
+    unmasked bits elsewhere, the plain version within the expanded form's
+    tolerance, a self-match exactly 0; the 4-byte copy path (a misaligned
+    x) gives the same bits."""
+    q, x = (torch.as_tensor(a).to(cuda) for a in l2_inputs(nq, n, d))
+    keep = torch.as_tensor(np.random.default_rng(n + d).random(n) < 0.6).to(cuda)
+    keep[0] = True
+    before = ops.launch_counts()["l2_distance"]
+    got = ops.l2_distance(q, x, keep)
+    assert ops.launch_counts()["l2_distance"] == before + 1
+    full = ops.l2_distance(q, x)
+    assert torch.equal(got, torch.where(keep[None, :], full, float("inf")))
+    torch.testing.assert_close(got, ops.l2_distance(q, x, keep, impl="plain"),
+                               rtol=1e-5, atol=l2_atol(q.cpu(), x.cpu()))
+    assert float(got[0, 0]) == 0.0
+    assert torch.equal(ops.l2_distance(q, _misaligned(x, cuda), keep), got)
+
+
+@pytest.mark.cuda
+def test_delta_scan_kernel_equals_the_separate_mask_pass(cuda):
+    """The delta scan through the masked kernel gives the bits of the
+    distances, then ``where(keep, d, inf)``, then the stable sort."""
+    q, x = (torch.as_tensor(a).to(cuda) for a in l2_inputs(200, 4096, 128))
+    rng = np.random.default_rng(5)
+    live = torch.as_tensor(rng.random(4096) < 0.5).to(cuda)
+    mask = torch.as_tensor(rng.random(4096) < 0.5).to(cuda)
+    for m in (None, mask):
+        keep = live if m is None else live & m
+        d = torch.where(keep[None, :], ops.l2_distance(q, x), float("inf"))
+        vals, idx = torch.sort(d, dim=-1, stable=True)
+        dists, slots = ops.delta_scan(q, x, live, 10, mask=m)
+        assert torch.equal(dists, vals[:, :10])
+        assert torch.equal(slots, idx[:, :10].to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_train_pq_is_deterministic_on_the_card(cuda):
+    """Two same-seed PQ trainings on the card give the same codebooks bit
+    for bit (the k-means sums are a segment sum, no atomic adds)."""
+    from repro_torch.core import pq
+    from repro_torch.data.pipeline import clustered_vectors
+
+    x = clustered_vectors(20_000, 64, num_clusters=32, seed=3)
+    books = pq.train_pq(x, 16, 256, 8, seed=0, device=cuda)
+    np.testing.assert_array_equal(books, pq.train_pq(x, 16, 256, 8, seed=0,
+                                                     device=cuda))
+    codes = pq.pq_encode(torch.as_tensor(x).to(cuda),
+                         torch.as_tensor(books).to(cuda))
+    assert torch.equal(codes, pq.pq_encode(torch.as_tensor(x).to(cuda),
+                                           torch.as_tensor(books).to(cuda)))
 
 
 @pytest.mark.cuda

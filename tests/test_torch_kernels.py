@@ -137,6 +137,78 @@ def test_pq_adc_plain_matches_jax_ref_and_pallas(nq, n, m, k):
             out[i], np.asarray(pallas_pq_adc(c, t, interpret=True)), **TOL)
 
 
+# (queries, rows a query, table rows, M, K) for pq_adc_gather: the entry
+# estimates (16 x 16), the HYBRID re-score (240 x 32), M not a multiple of
+# 16, K below 256
+GATHER_CASES = [(3, 16, 50, 16, 256), (2, 240, 300, 32, 256),
+                (4, 257, 90, 33, 200), (5, 1, 7, 8, 17), (1, 30, 40, 9, 64)]
+
+
+@pytest.mark.parametrize("id_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("nq,n,r,m,k", GATHER_CASES)
+def test_pq_adc_gather_plain_is_pq_adc_on_gathered_codes(nq, n, r, m, k,
+                                                          id_dtype):
+    """``pq_adc_gather`` equals ``pq_adc`` on ``table[ids]`` bit for bit,
+    and the JAX ``ops.pq_adc`` (its reference on the CPU) on the same
+    gathered codes within rtol = atol = 1e-5 (sums in another order)."""
+    rng = np.random.default_rng(nq * 100 + n + m)
+    table = rng.integers(0, k, (r, m)).astype(np.uint8)
+    ids = rng.integers(0, r, (nq, n)).astype(id_dtype)
+    lut = rng.standard_normal((nq, m, k)).astype(np.float32)
+    tt, ti, tl = (torch.as_tensor(a) for a in (table, ids, lut))
+    got = ops.pq_adc_gather(tt, ti, tl)
+    assert got.shape == (nq, n) and got.dtype == torch.float32
+    assert torch.equal(got, tref.pq_adc_gather_ref(tt, ti, tl))
+    assert torch.equal(got, ops.pq_adc(tt[ti.long()], tl))
+    for i in range(nq):
+        want = jops.pq_adc(jnp.asarray(table[ids[i]]), jnp.asarray(lut[i]))
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want), **TOL)
+
+
+def test_pq_adc_gather_takes_strided_ids():
+    """The entry estimates pass the first T columns of a sorted (Q, S)
+    index matrix, a view whose rows are S apart."""
+    rng = np.random.default_rng(5)
+    table = torch.as_tensor(rng.integers(0, 256, (64, 16)).astype(np.uint8))
+    ids = torch.as_tensor(rng.integers(0, 64, (4, 40)))
+    lut = torch.as_tensor(rng.random((4, 16, 256)).astype(np.float32))
+    view = ids[:, :16]
+    assert not view.is_contiguous()
+    assert torch.equal(ops.pq_adc_gather(table, view, lut),
+                       ops.pq_adc_gather(table, view.contiguous(), lut))
+
+
+@pytest.mark.parametrize("nq,n,m,k", [(1000, 240, 32, 256), (1000, 16, 16, 256),
+                                      (3, 1000, 8, 256), (2, 5000, 8, 64),
+                                      (7, 1, 4, 16), (5, 33, 33, 200)])
+def test_pq_adc_launch_plan_scores_every_row_once(nq, n, m, k):
+    """One block a query up to MAX_ROWS rows, threads the rows in whole
+    warps (at most MAX_THREADS); walking the grid as the kernel does
+    (block -> query and first row, thread -> rows first + tid + j threads)
+    scores every (query, row) exactly once."""
+    plan = pq_adc_k.launch_plan(nq, n, m, k)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= pq_adc_k.MAX_THREADS
+    assert plan.grid == nq * plan.chunks and plan.smem_bytes == m * k * 4
+    assert plan.rows_per_block <= pq_adc_k.MAX_ROWS
+    if n <= pq_adc_k.MAX_ROWS:
+        assert plan.chunks == 1
+    seen = []
+    for blk in range(plan.grid):
+        qi, first = blk // plan.chunks, (blk % plan.chunks) * plan.rows_per_block
+        last = min(n, first + plan.rows_per_block)
+        for tid in range(plan.threads):
+            seen += [(qi, i) for i in range(first + tid, last, plan.threads)]
+    assert sorted(seen) == [(i, j) for i in range(nq) for j in range(n)]
+
+
+def test_pq_adc_launch_plan_sizes_the_block_to_the_rows():
+    # the HYBRID re-score (b x Rp = 240 rows): 8 warps; the entry
+    # estimates (T = 16): one warp, not 256 threads with 240 idle
+    assert pq_adc_k.launch_plan(1000, 240, 32, 256)[:2] == (1000, 256)
+    assert pq_adc_k.launch_plan(1000, 16, 16, 256)[:2] == (1000, 32)
+    assert pq_adc_k.launch_plan(1000, 16, 16, 256).smem_bytes == 16 * 1024
+
+
 # ------------------------------------------------------------- hamming
 @pytest.mark.parametrize("s,w,nq", [(512, 2, 3), (1024, 2, 2), (37, 1, 4), (9, 5, 1)])
 def test_hamming_plain_matches_jax_ref_and_pallas_exactly(s, w, nq):
@@ -171,6 +243,25 @@ def test_l2_distance_plain_matches_jax_ref_and_pallas(nq, n, d):
         out, np.asarray(pallas_l2_distance(jq, jx, interpret=True)), **tol)
     exact = ((q[:, None, :].astype(np.float64) - x[None]) ** 2).sum(-1)
     np.testing.assert_allclose(out, exact, **tol)
+
+
+@pytest.mark.parametrize("nq,n,d", L2_CASES)
+def test_l2_distance_keep_is_where_keep_l2_inf(nq, n, d):
+    """``keep`` puts +inf in the columns it drops and leaves the rest bit
+    for bit as without it; held against the JAX ``l2_distance`` with the
+    same mask at the expanded form's tolerance."""
+    q, x = l2_inputs(nq, n, d)
+    keep = np.random.default_rng(n + d).random(n) < 0.6
+    keep[0] = True
+    tq, tx, tk = (torch.as_tensor(a) for a in (q, x, keep))
+    got = ops.l2_distance(tq, tx, tk)
+    assert torch.equal(got, torch.where(tk[None, :], ops.l2_distance(tq, tx),
+                                        float("inf")))
+    assert torch.equal(torch.isinf(got), ~tk[None, :].expand(nq, n))
+    want = np.where(keep[None, :],
+                    np.asarray(jops.l2_distance(jnp.asarray(q), jnp.asarray(x))),
+                    np.inf)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=l2_atol(q, x))
 
 
 # ------------------------------------------------------------- page_gather_l2
@@ -245,6 +336,25 @@ def test_delta_scan_matches_jax_ops_ref_and_pallas(k, masked):
     for row in range(7):
         inf_slots = slots[row][torch.isinf(dists[row])]
         assert torch.equal(inf_slots, torch.sort(inf_slots).values)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["live", "filtered"])
+def test_delta_scan_equals_the_separate_mask_pass(masked):
+    """The keep mask in ``l2_distance`` gives the bits of the earlier path:
+    the distances, then ``where(live & mask, d, inf)``, then the stable
+    sort."""
+    q, x = l2_inputs(9, 300, 24)
+    rng = np.random.default_rng(11)
+    live = torch.as_tensor(rng.random(300) < 0.7)
+    mask = torch.as_tensor(rng.random(300) < 0.5) if masked else None
+    tq, tx = torch.as_tensor(q), torch.as_tensor(x)
+    for k in (1, 10, 300):
+        dists, slots = ops.delta_scan(tq, tx, live, k, mask=mask)
+        keep = live if mask is None else live & mask
+        d = torch.where(keep[None, :], tref.l2_distance_ref(tq, tx), float("inf"))
+        vals, idx = torch.sort(d, dim=-1, stable=True)
+        assert torch.equal(dists, vals[:, :k])
+        assert torch.equal(slots, idx[:, :k].to(torch.int32))
 
 
 # ------------------------------------------------------------- launch plan
@@ -426,6 +536,26 @@ def test_kernel_route_refuses_cpu_tensors():
         l2_distance_k.l2_distance(q, q)
     with pytest.raises(ValueError, match="CUDA"):
         page_gather_k.page_gather_l2(torch.zeros((2, 4, 16)), ids % 2, q)
+
+
+def test_fused_entry_points_take_the_plain_version_on_cpu_and_refuse_it():
+    """``pq_adc_gather`` and the keep-masked ``l2_distance`` run their plain
+    versions on CPU tensors and count no launch; their kernel wrappers
+    refuse CPU tensors."""
+    rng = np.random.default_rng(6)
+    table = torch.as_tensor(rng.integers(0, 256, (20, 8)).astype(np.uint8))
+    ids = torch.as_tensor(rng.integers(0, 20, (2, 5)))
+    lut = torch.as_tensor(rng.random((2, 8, 256)).astype(np.float32))
+    q = torch.as_tensor(rng.standard_normal((3, 16)).astype(np.float32))
+    keep = torch.tensor([True, False, True])
+    ops.reset_launch_counts()
+    ops.pq_adc_gather(table, ids, lut)
+    ops.l2_distance(q, q, keep)
+    assert not any(ops.launch_counts().values())
+    with pytest.raises(ValueError, match="CUDA"):
+        pq_adc_k.pq_adc_gather(table, ids, lut)
+    with pytest.raises(ValueError, match="CUDA"):
+        l2_distance_k.l2_distance(q, q, keep)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
