@@ -36,18 +36,23 @@ version. Phases, one JSON line each:
 
 The kernels phase also holds ``l2_distance`` (the delta scan, with and
 without its keep mask) and ``page_gather_l2`` against their plain versions,
-and ``pq_adc`` both as the path calls it (``pq_adc_gather``: the code rows
-read by id inside the kernel) and on codes gathered first; the sift1m phase
+``pq_adc`` both as the path calls it (``pq_adc_gather``: the code rows read
+by id inside the kernel) and on codes gathered first, and ``hamming`` both
+as the path calls it (``hamming_topk``: the sweep and the routing's stable
+top-T in one kernel, bit for bit against the distance kernel, a cast and a
+stable sort, timed beside it) and alone (``ops.hamming``); the sift1m phase
 runs one delta scan over 262,144 vectors and the re-score over 1,000,000
-code rows. The compaction must equal a fresh build of the merged set in
-every array and search output. Each kernel's launches come from the
-path it serves, counted from 0 just before that path's run; the only path of
-``page_gather_l2`` is its own entry point ``ops.page_gather_l2``, driven once
-in the kernels phase. Then one ``{"kernels": [...]}`` line, the
-``nvidia-smi`` name/power line,
-and last ``{"ok": true, "device": {...}}``. Any failed check raises and the
-script exits non-zero without the last line. It also exits non-zero when no
-CUDA device is present or when it is run outside a checkout of the repo.
+code rows. Each e2e search must launch ``hamming`` once and sort no (Q, S)
+row of distances. The compaction must equal a fresh build of the merged set
+in every array and search output. Each kernel's launches come from the path
+it serves, counted from 0 just before that path's run; the only paths of
+``page_gather_l2`` and of the distances alone are their own entry points
+``ops.page_gather_l2`` and ``ops.hamming``, each driven once in the kernels
+phase. Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
+line, and last ``{"ok": true, "device": {...}}``. Any failed check raises
+and the script exits non-zero without the last line. It also exits non-zero
+when no CUDA device is present or when it is run outside a checkout of the
+repo.
 """
 from __future__ import annotations
 
@@ -98,8 +103,12 @@ KERNELS = {
     "page_scan_recs_members_masked": (_CU, _PAGE_SCAN_RECS),
     "pq_adc": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                "src/repro/kernels/pq_adc.py:34"),
+    # the routing's sweep and stable top-T, one kernel (ops.hamming_topk)
     "hamming": ("src/repro_torch/kernels/csrc/hamming.cu",
                 "src/repro/kernels/hamming.py:27"),
+    # the sweep's distances alone (ops.hamming)
+    "hamming_distances": ("src/repro_torch/kernels/csrc/hamming.cu",
+                          "src/repro/kernels/hamming.py:27"),
     "l2_distance": ("src/repro_torch/kernels/csrc/l2_distance.cu",
                     "src/repro/kernels/l2dist.py:33"),
     "page_gather_l2": ("src/repro_torch/kernels/csrc/page_gather.cu",
@@ -117,6 +126,7 @@ PATHS = {
     "page_scan_recs_members_masked": "filter_memall (streamed)",
     "l2_distance": "mutable (the delta scan)",
     "page_gather_l2": "kernels (its only caller is ops.page_gather_l2)",
+    "hamming_distances": "kernels (its only caller is ops.hamming)",
 }
 
 
@@ -428,21 +438,69 @@ def _pq_adc_gather_case(s: Smoke, table, ids, lut, reps: int) -> dict:
 
 
 def _hamming_case(s: Smoke, codes, qcodes) -> dict:
+    """The sweep's distances alone (``ops.hamming``), exact against its
+    plain version; its one counted call is the launch count of its path."""
     from repro_torch.kernels import ops
 
-    got = ops.hamming(codes, qcodes)
-    err = s.compare("hamming", got, ops.hamming(codes, qcodes, impl="plain"),
-                    exact=True)
+    ops.reset_launch_counts()
+    got = ops.hamming(codes, qcodes)                  # the path, counted
+    launches = ops.launch_counts()["hamming"]
+    err = s.compare("hamming_distances", got,
+                    ops.hamming(codes, qcodes, impl="plain"), exact=True)
     (sn, w), nq = codes.shape, qcodes.shape[0]
     bytes_ = codes.numel() * 4 + qcodes.numel() * 4 + nq * sn * 4
     ops_ = nq * sn * w * 3
     return dict(
-        name="hamming", q=nq, s=sn, w=w, max_abs_err=err,
+        name="hamming_distances", entry="hamming", q=nq, s=sn, w=w,
+        launches=launches, max_abs_err=err,
         ms=s.time_ms(lambda: ops.hamming(codes, qcodes), 50),
         call_ms=s.call_ms(lambda: ops.hamming(codes, qcodes), 50),
         plain_ms=s.time_ms(lambda: ops.hamming(codes, qcodes, impl="plain"), 10),
         **_bound(bytes_, ops_),
         library_ms=None,
+    )
+
+
+def _hamming_topk_case(s: Smoke, codes, qcodes, t: int) -> dict:
+    """The routing as the path runs it (``ops.hamming_topk``: the sweep and
+    its stable top-T in one kernel) against its plain version and, bit for
+    bit, against the route it replaced: the distance kernel, the f32 cast,
+    a stable ``torch.sort`` and the first t, timed beside it
+    (``old_route_ms``). ``library_ms``: that stable sort alone on the
+    precomputed distances. The bound counts the codes, the query codes and
+    the (Q, t) values and indices once."""
+    torch = s.torch
+    from repro_torch.kernels import ops
+
+    def old_route():
+        d = ops.hamming(codes, qcodes).to(torch.float32)
+        vals, idx = torch.sort(d, dim=-1, stable=True)
+        return vals[:, :t], idx[:, :t]
+
+    vals, idx = ops.hamming_topk(codes, qcodes, t)
+    want = ops.hamming_topk(codes, qcodes, t, impl="plain")
+    s.compare("hamming", vals, want[0], exact=True)
+    s.compare("hamming", idx, want[1], exact=True)
+    old_vals, old_idx = old_route()
+    if not (torch.equal(vals.to(torch.float32), old_vals)
+            and torch.equal(idx.long(), old_idx)):
+        raise AssertionError("hamming_topk: differs from the distance kernel, "
+                             "the cast and the stable sort")
+    dist = ops.hamming(codes, qcodes).to(torch.float32)
+    (sn, w), nq = codes.shape, qcodes.shape[0]
+    bytes_ = codes.numel() * 4 + qcodes.numel() * 4 + 2 * nq * t * 4
+    return dict(
+        name="hamming", entry="hamming_topk", q=nq, s=sn, w=w, t=t,
+        max_abs_err=0.0,
+        ms=s.time_ms(lambda: ops.hamming_topk(codes, qcodes, t), 50),
+        call_ms=s.call_ms(lambda: ops.hamming_topk(codes, qcodes, t), 50),
+        old_route_ms=s.time_ms(old_route, 50),
+        old_route_call_ms=s.call_ms(old_route, 50),
+        plain_ms=s.time_ms(
+            lambda: ops.hamming_topk(codes, qcodes, t, impl="plain"), 10),
+        **_bound(bytes_, nq * sn * w * 3),
+        library_ms=s.time_ms(
+            lambda: torch.sort(dist, dim=-1, stable=True), 50),
     )
 
 
@@ -635,9 +693,9 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
         -2**31, 2**31, (cfg_hybrid.lsh_sample, words)).astype(np.int32)).to(dev)
     qc = torch.as_tensor(rng.integers(
         -2**31, 2**31, (n_queries, words)).astype(np.int32)).to(dev)
-    row = _hamming_case(s, lsh, qc)
-    s.rows["hamming"] = row
-    cases.append(row)
+    s.rows["hamming_distances"] = _hamming_case(s, lsh, qc)
+    s.rows["hamming"] = _hamming_topk_case(s, lsh, qc, cfg_hybrid.lsh_entries)
+    cases += [s.rows["hamming_distances"], s.rows["hamming"]]
 
     # l2_distance: the mutable phase's delta scan (its 2,100 rows padded to
     # C = 4,096) at d = 128, and d = 32 / 200 beside it; clustered inputs
@@ -716,6 +774,7 @@ def phase_sift1m(s: Smoke, cfg_hybrid, cfg_memall) -> None:
     qc = torch.randint(-2**31, 2**31 - 1, (nq, words), generator=gen,
                        device=dev, dtype=torch.int32)
     emit("sift1m", **_hamming_case(s, lsh, qc))
+    emit("sift1m", **_hamming_topk_case(s, lsh, qc, cfg_hybrid.lsh_entries))
     del mem_codes, nids, lut
     torch.cuda.empty_cache()
     _sift1m_delta_scan(s, gen)
@@ -856,11 +915,14 @@ def _streamed_hop(s: Smoke, recs, ids, q, lut, *, cap: int, rp: int) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _profile_search(index, q) -> dict:
+def _profile_search(index, q, sample: int | None = None) -> dict:
     """One more search under ``torch.profiler``: the device's busy time
     (kernels and copies on the card) against the wall clock, and the device
     work by name. The profiler slows the host, so its wall time is longer
-    than an unprofiled search's; both shares are reported."""
+    than an unprofiled search's; both shares are reported. With ``sample``
+    (the LSH sample size S), ``routing_sorts`` counts the ``aten::sort``
+    calls over (Q, S) rows: the routing's sort, which the fused
+    ``hamming_topk`` replaced."""
     import collections
 
     import torch
@@ -868,7 +930,8 @@ def _profile_search(index, q) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=sample is not None) as prof:
         t0 = time.perf_counter()
         res = index.search(q, k=10)
         torch.cuda.synchronize()
@@ -881,6 +944,12 @@ def _profile_search(index, q) -> dict:
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     hops = max(1, int(res.hops.max()))
+    routing_sorts = None
+    if sample is not None:
+        routing_sorts = sum(
+            1 for e in prof.events()
+            if e.name == "aten::sort" and e.input_shapes
+            and e.input_shapes[0] and e.input_shapes[0][-1] == sample)
     return dict(
         profiled_wall_ms=wall * 1e3,
         device_busy_ms=busy if by_name else None,
@@ -888,6 +957,7 @@ def _profile_search(index, q) -> dict:
         top=[dict(name=name[:90], device_ms=ms, count=n)
              for name, (ms, n) in top],
         hops=hops,
+        routing_sorts=routing_sorts,
     )
 
 
@@ -953,7 +1023,8 @@ def run_e2e(cfg, n: int, n_queries: int, *, device: str, seed: int,
         for impl in order:
             (walls if impl is None else plain_walls).append(timed(impl)[1])
 
-    profile = _profile_search(index, q) if device == "cuda" else None
+    profile = (_profile_search(index, q, sample=cfg.lsh_sample)
+               if device == "cuda" else None)
     wall, plain_wall = float(np.median(walls)), float(np.median(plain_walls))
     if profile is not None and profile["device_busy_ms"] is not None:
         profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] / (wall * 1e3)
@@ -985,6 +1056,12 @@ def run_e2e(cfg, n: int, n_queries: int, *, device: str, seed: int,
     if agree < 0.99:
         raise AssertionError(f"{label}: kernel and plain paths agree on ids "
                              f"for only {agree:.4f} of queries")
+    if device == "cuda" and launches["hamming"] != 1:
+        raise AssertionError(f"{label}: {launches['hamming']} hamming launches "
+                             "in one search, not 1")
+    if profile is not None and profile["routing_sorts"]:
+        raise AssertionError(f"{label}: the routing still sorts (Q, S) "
+                             "distances")
     return out, dict(index=index, x=x, q=q, meta=meta, result=res, wall=wall)
 
 
@@ -1484,9 +1561,10 @@ def main(argv=None) -> int:
         del ctx
         torch.cuda.empty_cache()
     run_compaction(cfg_h, device="cuda", seed=args.seed)
-    # page_gather_l2 has no caller but its entry point: its path is the one
-    # ops.page_gather_l2 call of the kernels phase
+    # page_gather_l2 and the distance-only hamming have no caller but their
+    # entry points: each path is the one counted call of the kernels phase
     launches["page_gather_l2"] = smoke.rows["page_gather_l2"]["launches"]
+    launches["hamming_distances"] = smoke.rows["hamming_distances"]["launches"]
     never = [name for name in KERNELS if launches.get(name, 0) <= 0]
     if never:
         raise AssertionError(f"never launched on their paths: {never}")

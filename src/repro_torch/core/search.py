@@ -158,16 +158,18 @@ def init_state(
 ) -> BeamState:
     """In-memory routing (Alg. 2 line 4, Fig. 6 step 1): LSH entry points.
 
-    q: (Q, d), disk_lut: (Q, M_disk, K). The Hamming sweep and the entry
-    estimates run through the ``hamming`` and ``pq_adc`` kernels; the top-T
-    is a stable sort, because small-integer Hamming scores tie often.
+    q: (Q, d), disk_lut: (Q, M_disk, K). The Hamming sweep and its top-T
+    run in one ``hamming_topk`` kernel, the entry estimates through
+    ``pq_adc``. The top-T is stable (lower sample first on ties, as
+    ``lax.top_k``), because small-integer Hamming scores tie often; its
+    values are what the reference's ``entry_slack`` reads (A5).
     """
     nq = q.shape[0]
     dev = q.device
     num_pages = data.member_count.shape[0]
     qcode = hash_codes(q, data.lsh_planes)
-    ham = ops.hamming(data.lsh_codes, qcode, impl=impl)          # (Q, S)
-    _, top = _top_k_merge(ham.to(torch.float32), entries)
+    _, top = ops.hamming_topk(data.lsh_codes, qcode, entries, impl=impl)
+    top = top.long()                                            # (Q, T)
     entry_ids = data.lsh_ids[top].to(torch.int32)               # (Q, T)
     entry_d = ops.pq_adc_gather(data.lsh_pq, top, disk_lut, impl=impl)  # (Q, T)
     entry_d = _mask_dups_keep_first(entry_ids, entry_d)

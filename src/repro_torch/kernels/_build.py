@@ -23,6 +23,7 @@ from pathlib import Path
 
 SOURCES = ("page_scan.cu", "pq_adc.cu", "hamming.cu", "l2_distance.cu",
            "page_gather.cu")
+HEADERS = ("member_l2.cuh",)   # included by the sources; part of the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,9 +40,10 @@ _SIGNATURES = {
     "pageann_pq_adc": [_P] * 4 + [_I] * 8 + [_P],
     "pageann_pq_adc_blocks_per_sm": [_I] * 2 + [_P],
     "pageann_hamming": [_P] * 3 + [_I] * 3 + [_P],
+    "pageann_hamming_topk": [_P] * 4 + [_I] * 4 + [_P],
     "pageann_l2_distance": [_P] * 4 + [_I] * 3 + [_P],
     "pageann_l2_distance_blocks_per_sm": [_P],
-    "pageann_page_gather_l2": [_P] * 4 + [_I] * 5 + [_P],
+    "pageann_page_gather_l2": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 # launches of each kernel since the last reset: every wrapper adds one where
@@ -67,7 +69,7 @@ def launch_counts() -> dict:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

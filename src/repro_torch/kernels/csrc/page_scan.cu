@@ -43,8 +43,8 @@
 //     division in the copy and task loops cost a members-only scan a third
 //     of its time on the H100.
 //   - Member L2: one warp per (page, member) of the chunk: lane-strided FMAs,
-//     then an xor-shuffle tree (page_gather.cu sums in the same order). The
-//     mask is applied after the warp sum.
+//     then an xor-shuffle tree (member_l2.cuh, which page_gather.cu also
+//     sums with). The mask is applied after the warp sum.
 //   - Neighbour ADC: one thread per (page, column). The M code floats of the
 //     column are loaded together (when M is 4, 8 or 16 the first column's
 //     loads are issued before the block waits for its staging copies, so the
@@ -65,12 +65,13 @@
 //     lane keeps half of its values and adds the partner lane's copy of that
 //     half, so 8 members of d = 128 take 9 shuffles instead of 40, and each
 //     member ends in 32 / 8 lanes. MEM_ALL records have no code rows.
-// Every variant sums a member as page_gather.cu does: lane l takes columns
-// l, l + 32, ... in order with fmaf, then the xor-shuffle tree (offsets 16
-// down to 1, own value first), then the mask. So the members-only and ADC
-// variants give the same member scores, and a staged record scores bit for
-// bit like the same record read by page id (the streamed search equals the
-// resident one); the chunking and the plan do not change any sum.
+// Every variant sums a member with member_l2.cuh, as page_gather.cu does:
+// lane l takes columns l, l + 32, ... in order with fmaf, then the
+// xor-shuffle tree (offsets 16 down to 1, own value first), then the mask.
+// So the members-only and ADC variants give the same member scores, and a
+// staged record scores bit for bit like the same record read by page id (the
+// streamed search equals the resident one); the chunking and the plan do not
+// change any sum.
 //
 // The launch plan (grid, threads, shared bytes, pages per block and per
 // chunk) is computed by the wrapper (kernels/page_scan.py, launch_plan) and
@@ -80,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "member_l2.cuh"
 
 namespace {
 
@@ -93,12 +96,6 @@ constexpr int kMaxThreads = 256;
 // 5 (48 registers, one wave of 5,000 warps) spilled and ran 11-31% slower.
 constexpr int kAdcMinBlocks = 4;
 constexpr int kMembersMinBlocks = 4;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -274,77 +271,6 @@ __global__ void __launch_bounds__(kMaxThreads, kAdcMinBlocks)
       for (j += blockDim.x; j >= rp; j -= rp) ++p;
     }
   }
-}
-
-// Adds the squared differences of kG members in kJ of their columns
-// (c + 32 j; c starts at the lane) to acc; every load, the query's
-// included, is issued before the first FMA. Only the first n members of
-// the group exist. The first one starts at float row + col * dim of the
-// record (row: a member row's first float, col: the slot within it), and a
-// member row holds vpr members, row_floats floats apart.
-template <int kJ, int kG, bool kFirst>
-__device__ __forceinline__ void member_slab(float (&acc)[kG],
-                                            const float* rec, int row,
-                                            int col, int row_floats, int vpr,
-                                            int n, const float* qv, int c,
-                                            int dim) {
-  float qr[kJ], x[kG][kJ];
-#pragma unroll
-  for (int j = 0; j < kJ; ++j)
-    qr[j] = c + 32 * j < dim ? __ldg(qv + c + 32 * j) : 0.f;
-#pragma unroll
-  for (int i = 0; i < kG; ++i) {
-    const float* v = rec + row + col * dim + c;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j)
-      x[i][j] = i < n && c + 32 * j < dim ? __ldg(v + 32 * j) : 0.f;
-    if (++col == vpr) {
-      col = 0;
-      row += row_floats;
-    }
-  }
-  // past the member's last column both terms are 0, and fmaf(0, 0, acc)
-  // is acc: the same sum as a loop that stops at dim
-#pragma unroll
-  for (int i = 0; i < kG; ++i) {
-    float a = kFirst ? 0.f : acc[i];
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const float t = x[i][j] - qr[j];
-      a = fmaf(t, t, a);
-    }
-    acc[i] = a;
-  }
-}
-
-// Halves the kG values of every lane in one step of warp_sum's xor tree
-// (offset 32 kN / kG): a lane keeps the half whose index bit is its own
-// lane bit and adds the partner lane's copy of it, own value first, as
-// warp_sum does.
-template <int kN, int kG>
-__device__ __forceinline__ void halve(float (&a)[kG], int lane) {
-  constexpr int kOff = 32 * kN / kG;
-  const bool hi = lane & kOff;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    const float keep = hi ? a[i + kN] : a[i];
-    const float send = hi ? a[i] : a[i + kN];
-    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
-  }
-  if constexpr (kN > 1) halve<kN / 2, kG>(a, lane);
-}
-
-// warp_sum of each of kG values, the same tree and the same bits: the
-// first log2(kG) steps halve the values, the rest add one. Value i ends in
-// lanes i * 32 / kG .. (i + 1) * 32 / kG - 1.
-template <int kG>
-__device__ __forceinline__ float warp_sums(float (&a)[kG], int lane) {
-  if constexpr (kG > 1) halve<kG / 2, kG>(a, lane);
-  float v = a[0];
-#pragma unroll
-  for (int off = 16 / kG; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // Members only: one warp per (query, slot) item, blockDim.x / 32

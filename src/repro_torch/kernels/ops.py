@@ -38,6 +38,18 @@ def hamming(codes: torch.Tensor, qcodes: torch.Tensor, *,
     return ref.hamming_ref(codes, qcodes)
 
 
+def hamming_topk(codes: torch.Tensor, qcodes: torch.Tensor, t: int, *,
+                 impl: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The LSH routing's sweep and its stable top-T in one call: (S, W)
+    int32 codes, (Q, W) int32 query codes -> (vals (Q, t) int32, idx
+    (Q, t) int32), the first t of each row of ``hamming`` sorted
+    ascending, the lower sample first on ties (``lax.top_k``'s order). The
+    kernel never writes the (Q, S) distances; it counts as ``hamming``."""
+    if _use_kernel(impl, codes):
+        return hamming_k.hamming_topk(codes, qcodes, t)
+    return ref.hamming_topk_ref(codes, qcodes, t)
+
+
 def pq_adc(codes: torch.Tensor, lut: torch.Tensor, *,
            impl: str | None = None) -> torch.Tensor:
     """(Q, N, M) uint8 codes, (Q, M, K) f32 tables -> (Q, N) f32."""

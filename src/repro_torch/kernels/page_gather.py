@@ -2,17 +2,19 @@
 
 Replaces ``src/repro/kernels/page_gather.py`` (``page_gather_l2``), batched
 over queries. The kernel is ``csrc/page_gather.cu``: bound by bytes on the
-H100 (three flops a loaded float). One block per (query, page) loads its own
-page id, stages the query in shared memory, and scores one member per warp
-in the same order as ``page_scan``'s member scores.
+H100 (three flops a loaded float). One warp scores one (query, page) item:
+it loads its own page id, issues every member load of the page at once and
+keeps them and the query's columns in registers, with no shared memory. Its
+block size is the members-only page scan's (``page_scan.members_threads``),
+and the sum is its code (``csrc/member_l2.cuh``), so the two give the same
+bits.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-
-SMEM_LIMIT = 227 * 1024  # dynamic shared memory one H100 block may use
+from repro_torch.kernels import page_scan as page_scan_k
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -40,14 +42,15 @@ def page_gather_l2(pages: torch.Tensor, page_ids: torch.Tensor,
     nq, b = page_ids.shape
     _require(tuple(q.shape) == (nq, dim),
              f"q must be ({nq}, {dim}), got {tuple(q.shape)}")
-    _require(dim * 4 <= SMEM_LIMIT, f"d = {dim} does not fit in shared memory")
     out = torch.empty((nq, b, cap), dtype=torch.float32, device=pages.device)
     if out.numel() == 0:
         return out
+    threads = page_scan_k.members_threads(nq * b,
+                                          page_scan_k.sm_count(pages.device))
     with torch.cuda.device(pages.device):
         rc = _build.library().pageann_page_gather_l2(
             pages.data_ptr(), page_ids.data_ptr(), q.data_ptr(),
-            out.data_ptr(), nq, b, num_pages, cap, dim,
+            out.data_ptr(), nq, b, num_pages, cap, dim, threads,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "page_gather_l2")

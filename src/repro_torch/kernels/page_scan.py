@@ -75,10 +75,7 @@ def launch_plan(nq: int, b: int, *, capacity: int, dim: int, rp: int, m: int,
                  "a members-only scan runs one page a warp; threads sets "
                  "the warps of a block")
         if threads is None:
-            warps = MEMBERS_WARPS
-            while warps > 1 and -(-nq * b // warps) < sms:
-                warps //= 2
-            threads = 32 * warps
+            threads = members_threads(nq * b, sms)
         warps = max(1, threads // 32)
         return LaunchPlan(grid=-(-nq * b // warps), threads=threads,
                           smem_bytes=0, pages_per_block=warps,
@@ -102,8 +99,18 @@ def launch_plan(nq: int, b: int, *, capacity: int, dim: int, rp: int, m: int,
                       pages_per_block=ppb, pages_per_chunk=ppc)
 
 
+def members_threads(items: int, sms: int = NUM_SMS) -> int:
+    """Threads a block of a one-warp-per-item member scan (the members-only
+    page scan, ``page_gather_l2``): ``MEMBERS_WARPS`` warps, halved while
+    that leaves fewer blocks than ``sms``."""
+    warps = MEMBERS_WARPS
+    while warps > 1 and -(-items // warps) < sms:
+        warps //= 2
+    return 32 * warps
+
+
 @functools.cache
-def _sms(dev: torch.device) -> int:
+def sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -144,7 +151,7 @@ def _launch(recs, page_ids, q, lut, member_mask, *, nq, b, capacity, dim,
              f"records of {rows} rows cannot hold {mrows} member rows and "
              f"{m} code rows")
     plan = launch_plan(nq, b, capacity=capacity, dim=dim, rp=rp, m=m, k=k,
-                       compute_adc=compute_adc, sms=_sms(dev))
+                       compute_adc=compute_adc, sms=sm_count(dev))
 
     member_d = torch.empty((nq, b, capacity), dtype=torch.float32, device=dev)
     nbr_d = (torch.empty((nq, b, rp), dtype=torch.float32, device=dev)

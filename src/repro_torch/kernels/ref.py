@@ -34,6 +34,20 @@ def hamming_ref(codes: torch.Tensor, qcodes: torch.Tensor) -> torch.Tensor:
     return pc.sum(-1).to(torch.int32)
 
 
+def hamming_topk_ref(codes: torch.Tensor, qcodes: torch.Tensor,
+                     t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routing's stable top-T of the Hamming sweep. codes: (S, W)
+    int32, qcodes: (Q, W) int32 -> (vals (Q, t) int32, idx (Q, t) int32),
+    the first t of a stable ascending sort of each row of ``hamming_ref``:
+    the lower sample first on ties, as ``lax.top_k`` orders them. Raises
+    when t > S, as ``lax.top_k`` does."""
+    s = codes.shape[0]
+    if not 0 <= t <= s:
+        raise ValueError(f"hamming_topk: t = {t} must be in [0, S = {s}]")
+    vals, idx = torch.sort(hamming_ref(codes, qcodes), dim=-1, stable=True)
+    return vals[:, :t], idx[:, :t].to(torch.int32)
+
+
 def l2_distance_ref(q: torch.Tensor, x: torch.Tensor,
                     keep: torch.Tensor | None = None) -> torch.Tensor:
     """Squared L2 distances. q: (Q, d), x: (N, d), keep: (N,) bool or None

@@ -7,7 +7,8 @@ page-scan inputs below are shared with ``test_torch_kernels.py``):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance for the float kernels: rtol 1e-5, atol 1e-4, because the kernel
-sums in another order than the plain version; ``hamming`` is exact, and so
+sums in another order than the plain version; ``hamming`` and
+``hamming_topk`` are exact, and so
 are a staged record against the same record read by page id and the
 members-only scores against the ADC variant's (every variant sums a member
 in one order). ``l2_distance`` computes the expanded form
@@ -350,6 +351,66 @@ def test_hamming_kernel_matches_plain_exactly(cuda):
         assert torch.equal(ops.hamming(c, qc), ops.hamming(c, qc, impl="plain"))
 
 
+def _words(rng, *shape):
+    return rng.integers(-2**31, 2**31, shape).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,w", [(1024, 1), (1023, 2), (301, 3), (33, 5),
+                                 (6, 2), (1030, 4)])
+def test_hamming_kernel_matches_plain_on_any_shape_and_alignment(cuda, s, w):
+    """4 samples a thread with 16-byte loads and stores, and the scalar
+    paths: S % 4 != 0, W other than 2, a code view 4 bytes off alignment."""
+    rng = np.random.default_rng(s + w)
+    qc = torch.as_tensor(_words(rng, 37, w)).to(cuda)
+    buf = torch.as_tensor(_words(rng, s * w + 1)).to(cuda)
+    for c in (buf[:-1].view(s, w), buf[1:].view(s, w)):   # aligned, offset
+        assert c.is_contiguous()
+        assert torch.equal(ops.hamming(c, qc), ops.hamming(c, qc, impl="plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 15, 16, 17, "S/2", "S"])
+@pytest.mark.parametrize("s,w,nq", [(1024, 2, 1000), (1000, 2, 64), (33, 1, 5),
+                                    (300, 3, 7), (77, 5, 3), (2, 2, 2),
+                                    (1030, 2, 9), (4100, 2, 5)])
+@pytest.mark.parametrize("kind", ["ties", "random"])
+def test_hamming_topk_kernel_equals_plain_exactly(cuda, kind, s, w, nq, t):
+    """The fused sweep and stable top-T against the plain sweep and stable
+    sort: values and indices equal, with runs of equal values across the
+    t-th place (``ties``: every code one of 3 patterns), S not a multiple
+    of 32, and the main path's Q = 1,000 x S = 1,024. A warp keeps its
+    first 4 chunks of 32 samples (S <= 1,024) and scores the rest again in
+    each pass: S = 1,030 and 4,100 with t = S / 2 and S place entries from
+    those chunks."""
+    t = {"S": s, "S/2": max(1, s // 2)}.get(t, t)
+    t = min(t, s)
+    rng = np.random.default_rng(s * 7 + w + nq)
+    if kind == "ties":
+        codes = _words(rng, 3, w)[rng.integers(0, 3, s)]
+    else:
+        codes = _words(rng, s, w)
+    c = torch.as_tensor(codes).to(cuda)
+    qc = torch.as_tensor(_words(rng, nq, w)).to(cuda)
+    before = ops.launch_counts()["hamming"]
+    vals, idx = ops.hamming_topk(c, qc, t)
+    assert ops.launch_counts()["hamming"] == before + 1
+    want = ops.hamming_topk(c, qc, t, impl="plain")
+    assert torch.equal(vals, want[0]) and torch.equal(idx, want[1])
+    if kind == "ties" and s >= 300 and t < s:
+        # runs of ~S/3 equal values: the t-th place splits one in every row
+        sweep = ops.hamming(c, qc)
+        at_t = torch.sort(sweep, dim=1, stable=True).values[:, t - 1:t + 1]
+        assert torch.equal(at_t[:, 0], at_t[:, 1])
+
+
+@pytest.mark.cuda
+def test_hamming_topk_kernel_refuses_t_above_the_sample(cuda):
+    c = torch.zeros((8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="t = 9"):
+        ops.hamming_topk(c, c[:3], 9)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,n,d", L2_CASES + [(1000, 4096, 128)])
 def test_l2_distance_kernel_matches_plain(cuda, nq, n, d):
@@ -436,6 +497,44 @@ def test_page_gather_l2_kernel_matches_plain(cuda, p, cap, d, b):
     assert ops.launch_counts()["page_gather_l2"] == before + 1
     torch.testing.assert_close(got, ops.page_gather_l2(pages, ids, q, impl="plain"),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 2, 3, 5, 6, 7, 8])
+@pytest.mark.parametrize("d", [32, 100, 128, 200, 256])
+def test_page_gather_l2_kernel_any_width_and_capacity(cuda, d, cap):
+    """Every d (below, at and above 128, not a multiple of 32) and capacity
+    1-8, at Q = 1 (one block of one warp) and Q = 300; ids outside [0, P)
+    score the clamped page, as an XLA gather reads it."""
+    rng = np.random.default_rng(d * 10 + cap)
+    p = 13
+    pages = torch.as_tensor(rng.standard_normal((p, cap, d)).astype(np.float32)).to(cuda)
+    for nq in (1, 300):
+        ids = rng.integers(-3, p + 3, (nq, 5)).astype(np.int32)
+        q = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32)).to(cuda)
+        got = ops.page_gather_l2(pages, torch.as_tensor(ids).to(cuda), q)
+        clamped = torch.as_tensor(np.clip(ids, 0, p - 1)).to(cuda)
+        torch.testing.assert_close(
+            got, ops.page_gather_l2(pages, clamped, q, impl="plain"),
+            rtol=1e-5, atol=1e-4)
+        assert torch.equal(got, ops.page_gather_l2(pages, clamped, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,d", [(6, 128), (7, 128), (28, 32), (5, 100),
+                                   (3, 200), (8, 256), (33, 128), (40, 32)])
+def test_page_gather_l2_kernel_equals_page_scan_members_bit_for_bit(cuda, cap, d):
+    """One member sum (csrc/member_l2.cuh) in both kernels: on the same
+    vectors, packed into records for page_scan, the scores are equal."""
+    rng = np.random.default_rng(cap * 1000 + d)
+    vecs = rng.standard_normal((19, cap, d)).astype(np.float32)
+    codes = rng.integers(0, 256, (19, 12, 4)).astype(np.uint8)
+    recs = torch.as_tensor(pack_page_records(vecs, codes)).to(cuda)
+    ids = torch.as_tensor(rng.integers(0, 19, (300, 5)).astype(np.int32)).to(cuda)
+    q = torch.as_tensor(rng.standard_normal((300, d)).astype(np.float32)).to(cuda)
+    md, _ = ops.page_scan(recs, ids, q, None, capacity=cap, dim=d, rp=12,
+                          compute_adc=False)
+    assert torch.equal(ops.page_gather_l2(torch.as_tensor(vecs).to(cuda), ids, q), md)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.search import _top_k_merge as jax_top_k_merge
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import record_layout as jlayout
@@ -226,6 +227,74 @@ def test_hamming_plain_matches_jax_ref_and_pallas_exactly(s, w, nq):
         np.testing.assert_array_equal(out[i], np.asarray(jref.hamming_ref(c, qc)))
         np.testing.assert_array_equal(
             out[i], np.asarray(pallas_hamming(c, qc, interpret=True)))
+
+
+def hamming_topk_inputs(kind: str, s: int, w: int, nq: int = 2):
+    """(S, W) codes and (Q, W) query codes as uint32, from one seed:
+    ``ties``: every row one of 3 patterns (long runs of equal distances),
+    ``equal``: one pattern for every row, ``random``: uniform bits."""
+    rng = np.random.default_rng(s * 10 + w)
+
+    def bits(*shape):
+        return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+    if kind == "ties":
+        codes = bits(3, w)[rng.integers(0, 3, s)]
+    elif kind == "equal":
+        codes = np.repeat(bits(1, w), s, axis=0)
+    else:
+        codes = bits(s, w)
+    return codes, bits(nq, w)
+
+
+@pytest.mark.parametrize("t", ["1", "16", "S"])
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("s", [1024, 300, 33])
+@pytest.mark.parametrize("kind", ["ties", "equal", "random"])
+def test_hamming_topk_plain_matches_jax_sweep_then_top_k(kind, s, w, t):
+    """``hamming_topk`` is the reference's routing: the Hamming sweep (jnp
+    oracle and Pallas kernel alike), the f32 cast and ``_top_k_merge``
+    (``lax.top_k``: the lower sample first on ties). Values and indices
+    equal."""
+    t = s if t == "S" else int(t)
+    codes, qcodes = hamming_topk_inputs(kind, s, w)
+    vals, idx = ops.hamming_topk(torch.as_tensor(codes.view(np.int32)),
+                                 torch.as_tensor(qcodes.view(np.int32)), t)
+    assert vals.dtype == idx.dtype == torch.int32
+    assert vals.shape == idx.shape == (2, t)
+    for i in range(2):
+        c, qc = jnp.asarray(codes), jnp.asarray(qcodes[i])
+        for ham in (jref.hamming_ref(c, qc), pallas_hamming(c, qc, interpret=True)):
+            jv, ji = jax_top_k_merge(ham.astype(jnp.float32), t)
+            np.testing.assert_array_equal(vals[i].numpy(), np.asarray(jv))
+            np.testing.assert_array_equal(idx[i].numpy(), np.asarray(ji))
+
+
+def test_hamming_topk_raises_where_t_exceeds_the_sample():
+    codes, qcodes = (torch.as_tensor(a.view(np.int32))
+                     for a in hamming_topk_inputs("random", 33, 2))
+    assert ops.hamming_topk(codes, qcodes, 33)[0].shape == (2, 33)
+    with pytest.raises(ValueError, match="t = 34"):
+        ops.hamming_topk(codes, qcodes, 34)
+
+
+def test_hamming_topk_dispatch_on_cpu_and_its_kernel_refuses_cpu_tensors():
+    """CPU tensors take the plain version (no launch counted), only None
+    and "plain" are routes, and the kernel wrapper rejects CPU tensors."""
+    codes, qcodes = (torch.as_tensor(a.view(np.int32))
+                     for a in hamming_topk_inputs("ties", 300, 2))
+    ops.reset_launch_counts()
+    got = ops.hamming_topk(codes, qcodes, 16)
+    want = tref.hamming_topk_ref(codes, qcodes, 16)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plain = ops.hamming_topk(codes, qcodes, 16, impl="plain")
+    assert torch.equal(plain[0], want[0]) and torch.equal(plain[1], want[1])
+    assert not any(ops.launch_counts().values())
+    for impl in ("cuda", "pallas", "kernel"):
+        with pytest.raises(ValueError, match="impl"):
+            ops.hamming_topk(codes, qcodes, 16, impl=impl)
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming_k.hamming_topk(codes, qcodes, 16)
 
 
 # ------------------------------------------------------------- l2_distance
@@ -473,6 +542,18 @@ def test_members_plan_scores_every_item_once(capacity, dim, nq):
         assert _warps_cover_every_item_once(p, nq, 5)
     assert plan.threads // 32 <= page_scan_k.MEMBERS_WARPS
     assert plan.grid >= min(132, nq * 5) or plan.threads == 32
+
+
+@pytest.mark.parametrize("items", [1, 131, 264, 528, 5000])
+def test_members_threads_is_the_members_plans_block(items):
+    """``page_gather_l2`` takes its block size from ``members_threads``,
+    the members-only scan's own choice: 4 warps, halved while the blocks
+    are fewer than the SMs."""
+    plan = page_scan_k.launch_plan(items, 1, capacity=6, dim=128, rp=48, m=0,
+                                   k=0, compute_adc=False, sms=132)
+    assert page_scan_k.members_threads(items, 132) == plan.threads
+    assert page_scan_k.members_threads(items, 132) == {
+        1: 32, 131: 32, 264: 64, 528: 128, 5000: 128}[items]
 
 
 # ------------------------------------------------------------- dispatch

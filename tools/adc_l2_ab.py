@@ -67,16 +67,20 @@ def extract(rev: str) -> None:
         print(f"wrote {(BASE_DIR / name).relative_to(ROOT)} from {rev}")
 
 
-def compile_lib(src: Path, name: str, signatures: dict) -> tuple[ctypes.CDLL, Path]:
-    """``src`` compiled alone with the port's flags and loaded, with the
-    argument types of its C entries in ``signatures``; the compiler's output
-    goes beside the library as ``.log``."""
+def compile_lib(src: Path, name: str, signatures: dict,
+                out_dir: Path = OUT_DIR) -> tuple[ctypes.CDLL, Path]:
+    """``src`` compiled alone with the port's flags into ``out_dir`` and
+    loaded, with the argument types of its C entries in ``signatures``; the
+    compiler's output goes beside the library as ``.log``."""
     from repro_torch.kernels import _build
 
-    lib = OUT_DIR / f"lib{name}.so"
-    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                           "-o", str(lib), str(src)], check=True,
-                          capture_output=True, text=True)
+    lib = out_dir / f"lib{name}.so"
+    # a header the source includes is found beside it first, then in the
+    # repository's csrc/
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                           str(_build.CSRC), "-shared", "-o", str(lib),
+                           str(src)], check=True, capture_output=True,
+                          text=True)
     Path(str(lib) + ".log").write_text(done.stdout + done.stderr)
     dll = ctypes.CDLL(str(lib))
     for fn, argtypes in signatures.items():
