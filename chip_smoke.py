@@ -27,6 +27,18 @@ version. Phases, one JSON line each:
   filter    filtered search at selectivities 0.5 / 0.1 / 0.01 and a
             conjunction, resident and streamed, kernels and plain, held to
             a post-filter brute force
+  adaptive  each e2e index searched with ``AdaptiveParams``: early
+            termination (patience 2, 4), entry selection (2 bits of slack,
+            4 entries at least) and both, kernels and plain, resident and
+            streamed (equal exactly), one filtered search at selectivity
+            0.1 with patience 2; ``AdaptiveParams()`` must equal the plain
+            search exactly, a setting with patience may not hop or read
+            more than the same setting without it; in HYBRID, ``autotune``
+            to recall 0.95 on a reloaded copy, saved and reloaded with the
+            winner as its default params
+  profile   ``index.profile`` against ``index.search`` (plain and patience
+            2): equal results, a trail that sums to the totals, rendered
+            by ``repro_torch.obs.report``; profiled against unprofiled time
   mutable   the HYBRID index wrapped in a ``MutableIndex``: 2,000 inserts
             (one unseen tag value), 100 upserts, 500 deletes; unified search
             through the kernels and the plain versions, unfiltered and
@@ -86,6 +98,18 @@ MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered searc
 L2_ATOL_PER_NORM = 1e-6
 N_INSERTS, N_UPSERTS, N_DELETES = 2000, 100, 500   # the mutable phase's writes
 N_COMPACT_BASE = 1000       # the compaction's base: a build of its own
+# the adaptive phase's settings (AdaptiveParams): early termination alone,
+# entry selection alone, and both; a setting with patience is held to the
+# hops and ios of the same setting without it (the plain search if none)
+ADAPTIVE = {
+    "patience2": dict(patience=2),
+    "patience4": dict(patience=4),
+    "slack2-min4": dict(entry_slack_bits=2, min_entries=4),
+    "patience2-slack2-min4": dict(patience=2, entry_slack_bits=2, min_entries=4),
+    "patience4-slack2-min4": dict(patience=4, entry_slack_bits=2, min_entries=4),
+}
+ADAPTIVE_NAME = {tuple(sorted(kw.items())): name for name, kw in ADAPTIVE.items()}
+AUTOTUNE_RECALL = 0.95      # the adaptive phase's autotune target (HYBRID)
 
 _CU = "src/repro_torch/kernels/csrc/page_scan.cu"
 _PAGE_SCAN = "src/repro/kernels/page_scan.py:296"
@@ -915,14 +939,16 @@ def _streamed_hop(s: Smoke, recs, ids, q, lut, *, cap: int, rp: int) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _profile_search(index, q, sample: int | None = None) -> dict:
+def _profile_search(index, q, sample: int | None = None,
+                    params=None) -> dict:
     """One more search under ``torch.profiler``: the device's busy time
     (kernels and copies on the card) against the wall clock, and the device
     work by name. The profiler slows the host, so its wall time is longer
     than an unprofiled search's; both shares are reported. With ``sample``
     (the LSH sample size S), ``routing_sorts`` counts the ``aten::sort``
     calls over (Q, S) rows: the routing's sort, which the fused
-    ``hamming_topk`` replaced."""
+    ``hamming_topk`` replaced. ``params``: the search's (default: the
+    index's)."""
     import collections
 
     import torch
@@ -933,7 +959,7 @@ def _profile_search(index, q, sample: int | None = None) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=sample is not None) as prof:
         t0 = time.perf_counter()
-        res = index.search(q, k=10)
+        res = index.search(q, k=10, params=params)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = collections.defaultdict(lambda: [0.0, 0])
@@ -1062,7 +1088,8 @@ def run_e2e(cfg, n: int, n_queries: int, *, device: str, seed: int,
     if profile is not None and profile["routing_sorts"]:
         raise AssertionError(f"{label}: the routing still sorts (Q, S) "
                              "distances")
-    return out, dict(index=index, x=x, q=q, meta=meta, result=res, wall=wall)
+    return out, dict(index=index, x=x, q=q, meta=meta, result=res, wall=wall,
+                     truth=truth)
 
 
 def _median_wall(fn, device: str, runs: int = 3) -> float:
@@ -1140,6 +1167,24 @@ def run_stream(ctx: dict, *, device: str, label: str = "stream") -> dict:
         shutil.rmtree(directory, ignore_errors=True)
 
 
+def _filtered_truth(index, x, q, expr):
+    """(the (N,) mask of vectors passing ``expr``, the post-filter
+    brute-force top-10 ids of ``q``, -1 padded)."""
+    import numpy as np
+
+    from repro_torch.core import filter as filter_mod
+    from repro_torch.core.vamana import brute_force_knn
+
+    cf, _ = index.compiled_filter(expr)
+    passing = filter_mod.filter_mask_np(cf, index.meta_host.tags,
+                                        index.meta_host.nums)
+    pids = np.flatnonzero(passing)
+    truth = np.full((len(q), 10), -1, np.int64)
+    take = min(10, len(pids))
+    truth[:, :take] = pids[brute_force_knn(x[pids], q, take)]
+    return passing, truth
+
+
 def run_filter(ctx: dict, *, device: str, exprs: dict,
                label: str = "filter") -> dict:
     """Filtered search, resident and streamed, through the kernels and the
@@ -1148,8 +1193,6 @@ def run_filter(ctx: dict, *, device: str, exprs: dict,
     import numpy as np
 
     from repro_torch.core import FilterParams, recall_at_k
-    from repro_torch.core import filter as filter_mod
-    from repro_torch.core.vamana import brute_force_knn
     from repro_torch.kernels import ops
 
     index, streamed, x, q = ctx["index"], ctx["streamed"], ctx["x"], ctx["q"]
@@ -1172,13 +1215,8 @@ def run_filter(ctx: dict, *, device: str, exprs: dict,
         r = runs[name]
         res, got = r["res"], r["streamed"]
         plain = index.search(q, k=10, filter=expr, impl="plain")
-        cf, sel = index.compiled_filter(expr)
-        passing = filter_mod.filter_mask_np(cf, index.meta_host.tags,
-                                            index.meta_host.nums)
-        pids = np.flatnonzero(passing)
-        truth = np.full((len(q), 10), -1, np.int64)
-        take = min(10, len(pids))
-        truth[:, :take] = pids[brute_force_knn(x[pids], q, take)]
+        sel = index.compiled_filter(expr)[1]
+        passing, truth = _filtered_truth(index, x, q, expr)
         recall = recall_at_k(res.ids, truth)
         agree = float((res.ids == plain.ids).all(1).mean())
         ok = np.where(res.ids >= 0, passing[np.maximum(res.ids, 0)], True)
@@ -1208,6 +1246,231 @@ def run_filter(ctx: dict, *, device: str, exprs: dict,
     emit(label, mode=index.cfg.memory_mode.value, launches=launches,
          stream_launches=stream_launches)
     return dict(launches=launches, stream_launches=stream_launches)
+
+
+def _search_equal(got, want, what: str) -> None:
+    import numpy as np
+
+    for field in got._fields:
+        if not np.array_equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"{what}: {field} differ")
+
+
+def _walls_in_turns(fa, fb, device: str) -> tuple[float, float]:
+    """Median wall seconds of ``fa()`` and of ``fb()``, run in turns (a, b,
+    b, a, a, b) so that both see the same host."""
+    import numpy as np
+
+    walls = ([], [])
+    for i in (0, 1, 1, 0, 0, 1):
+        walls[i].append(_median_wall((fa, fb)[i], device, runs=1))
+    return float(np.median(walls[0])), float(np.median(walls[1]))
+
+
+def run_adaptive(ctx: dict, *, device: str, label: str = "adaptive") -> dict:
+    """Adaptive search over the e2e index (``AdaptiveParams``): early
+    termination, entry selection and both, through the kernels and the plain
+    versions, resident and under the memory budget; one filtered search at
+    selectivity 0.1 with patience 2; in HYBRID, ``autotune`` to a recall
+    target on a reloaded copy, saved and reloaded. ``AdaptiveParams()`` must
+    equal the plain search exactly. Returns each setting's launches."""
+    import numpy as np
+
+    from repro_torch.core import AdaptiveParams, Num, PageANNIndex, recall_at_k
+    from repro_torch.kernels import ops
+
+    index, streamed, x, q = ctx["index"], ctx["streamed"], ctx["x"], ctx["q"]
+    want, truth = ctx["result"], ctx["truth"]
+    mode = index.cfg.memory_mode.value
+    base = index.default_params.replace(k=10)
+    _search_equal(index.search(q, params=base.replace(adaptive=AdaptiveParams())),
+                  want, f"{label}: AdaptiveParams() against adaptive=None")
+    plain_recall = recall_at_k(want.ids, truth)
+
+    def sync():
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+
+    results, launches = {}, {}
+    for name, kw in ADAPTIVE.items():
+        p = base.replace(adaptive=AdaptiveParams(**kw))
+        index.search(q, params=p)                     # warm-up
+        sync()
+        ops.reset_launch_counts()
+        res = index.search(q, params=p)               # this setting, counted
+        sync()
+        launches[name] = {k: v for k, v in ops.launch_counts().items() if v}
+        results[name] = res
+        plain = index.search(q, params=p, impl="plain")
+        wall, base_wall = _walls_in_turns(
+            lambda: index.search(q, params=p),
+            lambda: index.search(q, params=base), device)
+        prof = (_profile_search(index, q, params=p) if device == "cuda"
+                else None)
+        if prof is not None and prof["device_busy_ms"] is not None:
+            prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / (wall * 1e3)
+        ops.reset_launch_counts()
+        _search_equal(streamed.search(q, params=p), res,
+                      f"{label} {name}: streamed against resident")
+        launches[f"{name} (streamed)"] = {
+            k: v for k, v in ops.launch_counts().items() if v}
+        # early termination only adds a reason to stop: against the same
+        # start (the same entry selection, patience off) a lane hops less
+        same_start = {k: v for k, v in kw.items() if k != "patience"}
+        bound_name = (None if "patience" not in kw
+                      else ADAPTIVE_NAME[tuple(sorted(same_start.items()))]
+                      if same_start else "plain")
+        bound = results.get(bound_name, want)
+        recall = recall_at_k(res.ids, truth)
+        agree = float((res.ids == plain.ids).all(1).mean())
+        emit(label, mode=mode, setting=name, adaptive=kw,
+             bounded_by=bound_name,
+             recall_at_10=recall, plain_recall_at_10=plain_recall,
+             mean_hops=float(res.hops.mean()), plain_mean_hops=float(want.hops.mean()),
+             loop_iterations=int(res.hops.max()),
+             plain_loop_iterations=int(want.hops.max()),
+             mean_ios=float(res.ios.mean()), plain_mean_ios=float(want.ios.mean()),
+             qps=len(q) / wall, plain_qps=len(q) / base_wall,
+             ids_agree_share=agree, streamed_equal=True,
+             launches_per_search=launches[name],
+             streamed_launches_per_search=launches[f"{name} (streamed)"],
+             profile=prof)
+        if bound_name is not None and ((res.hops > bound.hops).any()
+                                       or (res.ios > bound.ios).any()):
+            raise AssertionError(f"{label} {name}: more hops or ios than the "
+                                 "same search without early termination")
+        if agree < 0.99:
+            raise AssertionError(f"{label} {name}: kernel and plain paths agree "
+                                 f"on ids for only {agree:.4f} of queries")
+        if recall < plain_recall - 0.02 or (mode == "hybrid" and recall < MIN_RECALL):
+            raise AssertionError(f"{label} {name}: recall@10 {recall:.4f} "
+                                 f"(plain {plain_recall:.4f})")
+
+    # one filtered selectivity with early termination
+    expr = Num("score").le(float(np.quantile(np.asarray(ctx["meta"]["score"]), 0.1)))
+    p = base.replace(adaptive=AdaptiveParams(patience=2))
+    index.search(q, params=p, filter=expr)            # warm-up
+    sync()
+    ops.reset_launch_counts()
+    res = index.search(q, params=p, filter=expr)      # counted
+    sync()
+    launches["filter_patience2"] = {k: v for k, v in ops.launch_counts().items() if v}
+    off = index.search(q, params=base, filter=expr)
+    plain = index.search(q, params=p, filter=expr, impl="plain")
+    ops.reset_launch_counts()
+    _search_equal(streamed.search(q, params=p, filter=expr), res,
+                  f"{label} filtered: streamed against resident")
+    launches["filter_patience2 (streamed)"] = {
+        k: v for k, v in ops.launch_counts().items() if v}
+    passing, ftruth = _filtered_truth(index, x, q, expr)
+    recall = recall_at_k(res.ids, ftruth)
+    agree = float((res.ids == plain.ids).all(1).mean())
+    ok = np.where(res.ids >= 0, passing[np.maximum(res.ids, 0)], True)
+    wall, base_wall = _walls_in_turns(
+        lambda: index.search(q, params=p, filter=expr),
+        lambda: index.search(q, params=base, filter=expr), device)
+    emit(label, mode=mode, setting="filter_patience2", selectivity=0.1,
+         recall_at_10=recall, plain_recall_at_10=recall_at_k(off.ids, ftruth),
+         mean_hops=float(res.hops.mean()), plain_mean_hops=float(off.hops.mean()),
+         loop_iterations=int(res.hops.max()),
+         plain_loop_iterations=int(off.hops.max()),
+         qps=len(q) / wall, plain_qps=len(q) / base_wall,
+         ids_agree_share=agree, launches_per_search=launches["filter_patience2"],
+         streamed_launches_per_search=launches["filter_patience2 (streamed)"])
+    if (res.hops > off.hops).any() or (res.ios > off.ios).any():
+        raise AssertionError(f"{label} filtered: more hops or ios than without "
+                             "early termination")
+    if not ok.all():
+        raise AssertionError(f"{label} filtered: a returned id fails the filter")
+    # no recall floor here: a lane whose top-k holds no passing member yet
+    # has an infinite frontier, which never improves, so early termination
+    # stops it after ``patience`` such hops (the reference's rule)
+    if agree < 0.99:
+        raise AssertionError(f"{label} filtered: kernel and plain paths agree "
+                             f"on ids for only {agree:.4f} of queries")
+
+    if mode == "hybrid":
+        SCRATCH.mkdir(parents=True, exist_ok=True)
+        directory = tempfile.mkdtemp(dir=SCRATCH)
+        try:
+            # a reloaded copy: the e2e index keeps its default params
+            index.save(os.path.join(directory, "base"))
+            copy = PageANNIndex.load(os.path.join(directory, "base"), device=device)
+            t0 = time.perf_counter()
+            win = copy.autotune(q, recall_target=AUTOTUNE_RECALL, truth=truth)
+            tune_s = time.perf_counter() - t0
+            copy.save(os.path.join(directory, "tuned"))
+            back = PageANNIndex.load(os.path.join(directory, "tuned"), device=device)
+            got = recall_at_k(back.search(q, k=10).ids, truth)
+            emit(label, mode=mode, setting="autotune", target=AUTOTUNE_RECALL,
+                 seconds=tune_s, winner=win["params"].to_json(),
+                 recall_at_10=win["recall"], qps=win["qps"],
+                 mean_hops=win["mean_hops"], p99_us=win["p99_us"],
+                 reloaded_recall_at_10=got,
+                 points=[dict(params=m["params"].to_json(), recall=m["recall"],
+                              qps=m["qps"], mean_hops=m["mean_hops"])
+                         for m in copy.tuned])
+            if back.default_params != win["params"]:
+                raise AssertionError(f"{label}: the reloaded default params are "
+                                     "not the autotuned winner")
+            if back.params_for_target(recall_target=AUTOTUNE_RECALL) != win["params"]:
+                raise AssertionError(f"{label}: params_for_target is not the winner")
+            if win["recall"] < AUTOTUNE_RECALL or got != win["recall"]:
+                raise AssertionError(f"{label}: autotune recall {win['recall']}, "
+                                     f"reloaded {got}, target {AUTOTUNE_RECALL}")
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+    return dict(launches=launches)
+
+
+def run_profile(ctx: dict, *, device: str, label: str = "profile") -> None:
+    """``index.profile`` against ``index.search`` with the same params
+    (plain and patience 2): the same results exactly, a trail whose per-hop
+    deltas sum to the totals, saved as JSON and rendered by the report."""
+    import numpy as np
+
+    from repro_torch.core import AdaptiveParams
+    from repro_torch.obs.report import profile_to_dict, render_profile
+
+    index, q = ctx["index"], ctx["q"]
+    base = index.default_params.replace(k=10)
+    for name, adaptive in (("plain", None), ("patience2", AdaptiveParams(patience=2))):
+        p = base.replace(adaptive=adaptive)
+        want = index.search(q, params=p)
+        got, trail = index.profile(q, params=p)
+        _search_equal(got, want, f"{label} {name}: profile against search")
+        if not (np.array_equal(trail.active.sum(1), got.hops)
+                and np.array_equal(trail.ios.sum(1), got.ios)
+                and np.array_equal(trail.cache_hits.sum(1), got.cache_hits)
+                and (trail.pages[~trail.active] == -1).all()):
+            raise AssertionError(f"{label} {name}: the trail does not add up")
+        if adaptive is None and trail.stall.any():
+            raise AssertionError(f"{label} {name}: stall without patience")
+        SCRATCH.mkdir(parents=True, exist_ok=True)
+        fd, path = tempfile.mkstemp(suffix=".json", dir=SCRATCH)
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(profile_to_dict(got, trail), f)
+            with open(path) as f:
+                text = render_profile(json.load(f), queries=2)
+        finally:
+            os.unlink(path)
+        if "query 1: hops=" not in text:
+            raise AssertionError(f"{label} {name}: the profile did not render")
+        profiled, unprofiled = _walls_in_turns(
+            lambda: index.profile(q, params=p),
+            lambda: index.search(q, params=p), device)
+        # lanes that early termination stopped: the stall counter reached
+        # patience on their last hop
+        last = trail.stall[np.arange(len(q)), np.maximum(got.hops - 1, 0)]
+        emit(label, mode=index.cfg.memory_mode.value, setting=name,
+             profiled_ms=profiled * 1e3, search_ms=unprofiled * 1e3,
+             mean_hops=float(got.hops.mean()), equal_to_search=True,
+             stopped_by_patience=(int((last >= adaptive.patience).sum())
+                                  if adaptive is not None else 0),
+             rendered_lines=text.count("\n"))
 
 
 def fresh_vectors(n_base: int, n_new: int, dim: int, seed: int):
@@ -1531,8 +1794,9 @@ def main(argv=None) -> int:
 
     # each path's launches, counted from 0 just before its run: the e2e
     # searches (page_scan, pq_adc, hamming; members-only in MEM_ALL), the
-    # streamed searches (page_scan_recs*), the filtered ones (*_masked)
-    launches = {}
+    # streamed searches (page_scan_recs*), the filtered ones (*_masked);
+    # each adaptive setting's search is counted on its own as well
+    launches, adaptive_launches = {}, {}
     for cfg, label in ((cfg_h, "e2e"), (cfg_m, "e2e_memall")):
         hybrid = cfg is cfg_h
         run, ctx = run_e2e(cfg, args.n, N_QUERIES, device="cuda",
@@ -1555,6 +1819,14 @@ def main(argv=None) -> int:
         launches[name] = filt["launches"][name]
         name = "page_scan_recs_masked" if hybrid else "page_scan_recs_members_masked"
         launches[name] = filt["stream_launches"][name]
+        adapt = run_adaptive(ctx, device="cuda",
+                             label="adaptive" if hybrid else "adaptive_memall")
+        for setting, counts in adapt["launches"].items():
+            for name, n in counts.items():
+                adaptive_launches.setdefault(name, {})[
+                    f"{cfg.memory_mode.value}:{setting}"] = n
+        run_profile(ctx, device="cuda",
+                    label="profile" if hybrid else "profile_memall")
         if hybrid:
             mut = run_mutable(ctx, device="cuda", seed=args.seed)
             launches["l2_distance"] = mut["launches"]["l2_distance"]
@@ -1575,6 +1847,7 @@ def main(argv=None) -> int:
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], launches_path=PATHS[name],
+            launches_adaptive=adaptive_launches.get(name, {}),
             max_abs_err=smoke.err[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -1,5 +1,6 @@
 """PageANN core, ported to PyTorch: the counterpart of ``repro.core``."""
 from repro_torch.core.config import (
+    AdaptiveParams,
     DeltaParams,
     FilterParams,
     MemoryBudget,
@@ -17,14 +18,17 @@ from repro_torch.core.persist import (
     load_pageann,
 )
 from repro_torch.core.protocol import MutableVectorIndex, VectorIndex
+from repro_torch.core.search import HopProfile, profile_search
 from repro_torch.core.stream import PageFetcher
 
 __all__ = [
+    "AdaptiveParams",
     "BuildStats",
     "DeltaParams",
     "DeltaTier",
     "FilterExpr",
     "FilterParams",
+    "HopProfile",
     "IndexFormatError",
     "MemoryBudget",
     "MemoryMode",
@@ -41,5 +45,6 @@ __all__ = [
     "index_from_arrays",
     "load_index",
     "load_pageann",
+    "profile_search",
     "recall_at_k",
 ]

@@ -1,18 +1,22 @@
 """High-level PageANN index: build / search / save (Fig. 3 pipeline).
 
-Port of ``repro.core.index`` (no autotuning or adaptive search yet; see
-ROADMAP queue A, item 5). Pre-processing:
-Vamana vector graph -> page-node grouping (Alg. 1) -> PQ codebooks (coarse
-on-page + fine in-memory) -> id reassignment + page packing (Sec 4.2/5) ->
-LSH routing index -> memory-disk coordination (Sec 4.3) with optional
-warm-up page caching, and metadata columns for filtered search when a
-schema is given. ``search`` runs ``core.search.batch_search`` (or
-``stream_search`` on an index loaded under a memory budget) on the index's
-device and translates results back to original vector ids.
+Port of ``repro.core.index``. Pre-processing: Vamana vector graph ->
+page-node grouping (Alg. 1) -> PQ codebooks (coarse on-page + fine
+in-memory) -> id reassignment + page packing (Sec 4.2/5) -> LSH routing
+index -> memory-disk coordination (Sec 4.3) with optional warm-up page
+caching, and metadata columns for filtered search when a schema is given.
+``search`` runs ``core.search.batch_search`` (or ``stream_search`` on an
+index loaded under a memory budget) on the index's device and translates
+results back to original vector ids; ``profile`` runs the same search with
+its per-hop trail kept. ``autotune`` finds the cheapest operating point
+meeting a recall (or p99 latency) target over the loaded index, and the
+winner becomes ``default_params`` (persisted in the manifest's ``tuned``
+section).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -26,6 +30,7 @@ from repro_torch.core import pq as pq_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core import vamana as vamana_mod
 from repro_torch.core.config import (
+    AdaptiveParams,
     FilterParams,
     PageANNConfig,
     SearchParams,
@@ -76,6 +81,11 @@ class PageANNIndex:
     # host reader over the pages.bin memmap, and the budget it was loaded at
     fetcher: object | None = None
     memory_budget: object | None = None
+    # autotuned operating points (``autotune``): measured {params, recall,
+    # qps, p99_us, target, ...} dicts, persisted in the manifest's ``tuned``
+    # section; ``tuned_default`` is the point searches resolve by default
+    tuned: list = dataclasses.field(default_factory=list)
+    tuned_default: SearchParams | None = None
     # filtered search: the metadata schema, the tag vocabularies (field ->
     # tuple of values; codes are positions), the page-slot-aligned columns
     # on the device the page scan masks from, and the original-order host
@@ -227,7 +237,10 @@ class PageANNIndex:
     @property
     def default_params(self) -> SearchParams:
         """The runtime parameter set searches resolve when none is given:
-        the build config's knobs."""
+        the autotuned operating point if one is stored (``autotune`` / the
+        manifest's ``tuned.default``), else the build config's knobs."""
+        if self.tuned_default is not None:
+            return self.tuned_default
         return SearchParams.from_config(self.cfg)
 
     def resolve_params(
@@ -356,10 +369,11 @@ class PageANNIndex:
     ) -> search_mod.SearchResult:
         """Search; returns ORIGINAL vector ids as numpy arrays.
 
-        ``params`` supplies the runtime knobs (defaults come from the build
-        config); ``k`` overrides ``params.k`` when given. ``impl="plain"``
-        runs the kernels' plain versions on the index's device (for
-        comparing the two; the default runs the kernels on a GPU).
+        ``params`` supplies the runtime knobs (``default_params`` when
+        None: the autotuned point, else the build config's); ``k``
+        overrides ``params.k`` when given. ``impl="plain"`` runs the
+        kernels' plain versions on the index's device (for comparing the
+        two; the default runs the kernels on a GPU).
 
         ``filter`` restricts results to vectors whose metadata satisfies
         the predicate (``core.filter``): non-passing members score ``+inf``
@@ -368,17 +382,27 @@ class PageANNIndex:
         ``filter_params.max_filter_oversample``) so recall matches a
         post-filter brute force. ``filter=None`` is the unfiltered search.
         """
-        p = self.resolve_params(k, params)
-        meta = cfilter = None
-        if filter is not None:
-            fp = filter_params if filter_params is not None else FilterParams()
-            cfilter, sel = self.compiled_filter(filter)
-            factor = self._filter_oversample(sel, fp.max_filter_oversample)
-            if factor > 1:
-                p = p.replace(beam_width=p.beam_width * factor)
-            meta = self.meta
+        p, meta, cfilter = self._filtered(
+            self.resolve_params(k, params), filter, filter_params)
         res = self._raw_search(self._queries(queries), p, impl=impl,
                                meta=meta, cfilter=cfilter)
+        return self._host_result(res)
+
+    def _filtered(self, p: SearchParams, filter: FilterExpr | None,
+                  filter_params: FilterParams | None):
+        """(params, meta, compiled filter) of a search: with a filter, the
+        beam widened by the pow2 oversampling of its selectivity."""
+        if filter is None:
+            return p, None, None
+        fp = filter_params if filter_params is not None else FilterParams()
+        cfilter, sel = self.compiled_filter(filter)
+        factor = self._filter_oversample(sel, fp.max_filter_oversample)
+        if factor > 1:
+            p = p.replace(beam_width=p.beam_width * factor)
+        return p, self.meta, cfilter
+
+    def _host_result(self, res: search_mod.SearchResult) -> search_mod.SearchResult:
+        """A device result as numpy arrays, ids translated to original ones."""
         return search_mod.SearchResult(
             ids=self.translate_ids(res.ids.cpu().numpy()),
             dists=res.dists.cpu().numpy(),
@@ -386,6 +410,231 @@ class PageANNIndex:
             hops=res.hops.cpu().numpy(),
             cache_hits=res.cache_hits.cpu().numpy(),
         )
+
+    def profile(
+        self,
+        queries: np.ndarray,
+        k: int | None = None,
+        params: SearchParams | None = None,
+        *,
+        filter: FilterExpr | None = None,
+        filter_params: FilterParams | None = None,
+        save: str | None = None,
+    ) -> tuple[search_mod.SearchResult, search_mod.HopProfile]:
+        """``search`` with the per-hop trail kept (opt-in debug mode).
+
+        Runs ``core.search.profile_search``, the same hops as ``search``,
+        and returns the translated ``SearchResult`` plus a
+        :class:`repro_torch.core.search.HopProfile` of numpy arrays holding,
+        per query and hop: the scheduled page ids, the disk-I/O and
+        cache-hit deltas, the worst of the running top-k and the adaptive
+        stall counter. The results equal ``search``'s bit for bit.
+
+        ``save=`` writes the profile as JSON that ``python -m
+        repro_torch.obs.report`` (or the reference's report) renders. Not
+        supported over a streamed (memory-budgeted) index.
+        """
+        if self.fetcher is not None:
+            raise ValueError(
+                "profile() over a streamed (memory-budgeted) index is not "
+                "supported: reload without memory_budget to profile"
+            )
+        p, meta, cfilter = self._filtered(
+            self.resolve_params(k, params), filter, filter_params)
+        res, trail = search_mod.profile_search(
+            self._queries(queries), self.data, p,
+            capacity=self.store.capacity, mode=self.cfg.memory_mode.value,
+            meta=meta, cfilter=cfilter,
+        )
+        res = self._host_result(res)
+        trail = search_mod.HopProfile(*(t.cpu().numpy() for t in trail))
+        if save is not None:
+            from repro_torch.obs.report import profile_to_dict
+
+            with open(save, "w") as f:
+                json.dump(profile_to_dict(res, trail), f)
+        return res, trail
+
+    # -------------------------------------------------------------- autotune
+    def _measure(
+        self, queries: torch.Tensor, params: SearchParams, truth: np.ndarray
+    ) -> dict:
+        """One operating point: recall and the wall clock of one search of
+        the batch, after one warm-up search. On the card the timed search
+        lies between two ``torch.cuda.synchronize()`` calls. The p99
+        latency is estimated from the hop distribution, as the reference
+        does: a query's cost is hop-dominated, so ``mean_us * p99_hops /
+        mean_hops`` prices the straggler lanes of one batched search."""
+        self._raw_search(queries, params)                 # warm-up
+        self._sync()
+        t0 = time.perf_counter()
+        res = self._raw_search(queries, params)
+        self._sync()
+        wall = time.perf_counter() - t0
+        found = self.translate_ids(res.ids.cpu().numpy())
+        recall = recall_at_k(found[:, : truth.shape[1]], truth)
+        hops = res.hops.cpu().numpy()
+        mean_us = wall / queries.shape[0] * 1e6
+        mean_hops = float(hops.mean())
+        p99_scale = (
+            float(np.percentile(hops, 99)) / mean_hops if mean_hops else 1.0
+        )
+        return dict(
+            params=params,
+            recall=float(recall),
+            qps=queries.shape[0] / wall if wall > 0 else float("inf"),
+            mean_us=mean_us,
+            p99_us=mean_us * p99_scale,
+            mean_hops=mean_hops,
+            mean_ios=float(res.ios.cpu().numpy().mean()),
+        )
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def autotune(
+        self,
+        queries: np.ndarray,
+        *,
+        recall_target: float | None = None,
+        p99_target_us: float | None = None,
+        k: int = 10,
+        truth: np.ndarray | None = None,
+        beam_grid: tuple | None = None,
+        patience_grid: tuple = (None, 2, 4),
+        io_batch_grid: tuple | None = None,
+        entries_grid: tuple | None = None,
+        store: bool = True,
+    ) -> dict:
+        """Find the cheapest operating point meeting a recall (or p99
+        latency) target over this loaded index, without rebuilding it.
+
+        Recall mode: recall is monotone in beam width, so binary-search the
+        beam ladder for the cheapest rung meeting ``recall_target``, then
+        refine around it with the adaptive knobs (early-termination
+        patience, io_batch, entry count) and keep the highest-QPS variant
+        still meeting the target. Latency mode (``p99_target_us``): the
+        highest-recall measured point within budget. The grids and the
+        selection rules are the reference's; which point wins a QPS race is
+        measured on this device.
+
+        The winner is appended to ``self.tuned`` and becomes
+        ``default_params`` (``store=True``); ``save`` writes both to the
+        manifest's ``tuned`` section. Returns the winning measurement dict
+        (params, recall, qps, p99_us, ...).
+        """
+        if (recall_target is None) == (p99_target_us is None):
+            raise ValueError(
+                "autotune needs exactly one of recall_target= or "
+                "p99_target_us="
+            )
+        q = self._queries(queries)
+        if truth is None:
+            truth = vamana_mod.brute_force_knn(
+                self.vectors_by_original_id(), np.asarray(queries), k
+            )
+        truth = np.asarray(truth)[:, :k]
+
+        base = SearchParams.from_config(self.cfg, k=k)
+        t = base.lsh_entries
+        if beam_grid is None:
+            bw = base.beam_width
+            beam_grid = tuple(sorted({max(t, bw // 4), max(t, bw // 2),
+                                      bw, 2 * bw}))
+        beam_grid = tuple(sorted(beam_grid))
+        measured: list[dict] = []
+
+        def probe(p: SearchParams) -> dict:
+            m = self._measure(q, p, truth)
+            measured.append(m)
+            return m
+
+        if recall_target is not None:
+            # binary search the beam ladder: cheapest rung >= target
+            lo, hi = 0, len(beam_grid) - 1
+            best_rung = None
+            while lo <= hi:
+                mid = (lo + hi) // 2
+                m = probe(base.replace(beam_width=beam_grid[mid]))
+                if m["recall"] >= recall_target:
+                    best_rung = m
+                    hi = mid - 1
+                else:
+                    lo = mid + 1
+            if best_rung is None:       # even the widest rung missed
+                best_rung = max(measured, key=lambda m: m["recall"])
+            # refine at the chosen rung: adaptive and cheaper-I/O variants
+            rung = best_rung["params"]
+            variants: list[SearchParams] = []
+            for pat in patience_grid:
+                if pat is not None:
+                    variants.append(rung.replace(
+                        adaptive=AdaptiveParams(patience=pat)))
+            for iob in (io_batch_grid or ()):
+                if iob != rung.io_batch:
+                    variants.append(rung.replace(io_batch=iob))
+            for ent in (entries_grid or ()):
+                if ent != rung.lsh_entries and ent <= rung.beam_width:
+                    variants.append(rung.replace(lsh_entries=ent))
+            for v in variants:
+                probe(v)
+            ok = [m for m in measured if m["recall"] >= recall_target]
+            pool = ok or [max(measured, key=lambda m: m["recall"])]
+            winner = max(pool, key=lambda m: m["qps"])
+            target = {"recall": recall_target}
+        else:
+            for b in beam_grid:
+                probe(base.replace(beam_width=b))
+                for pat in patience_grid:
+                    if pat is not None:
+                        probe(base.replace(
+                            beam_width=b,
+                            adaptive=AdaptiveParams(patience=pat)))
+            ok = [m for m in measured if m["p99_us"] <= p99_target_us]
+            pool = ok or [min(measured, key=lambda m: m["p99_us"])]
+            winner = max(pool, key=lambda m: m["recall"])
+            target = {"p99_us": p99_target_us}
+
+        winner = dict(winner, target=target)
+        if store:
+            self.tuned.append(winner)
+            self.tuned_default = winner["params"]
+        return winner
+
+    def params_for_target(
+        self,
+        recall_target: float | None = None,
+        p99_target_us: float | None = None,
+    ) -> SearchParams:
+        """Resolve a stored tuned operating point for a serving target.
+
+        Picks among the points ``autotune`` recorded (round-tripped through
+        the manifest): for a recall target, the highest-QPS point whose
+        measured recall meets it; for a latency target, the highest-recall
+        point within budget. Raises ``LookupError`` when nothing stored
+        qualifies."""
+        if (recall_target is None) == (p99_target_us is None):
+            raise ValueError(
+                "need exactly one of recall_target= or p99_target_us="
+            )
+        if recall_target is not None:
+            ok = [m for m in self.tuned if m["recall"] >= recall_target]
+            if not ok:
+                raise LookupError(
+                    f"no tuned operating point reaches recall "
+                    f"{recall_target}: run autotune(queries, recall_target="
+                    f"{recall_target}) on this index and save it"
+                )
+            return max(ok, key=lambda m: m["qps"])["params"]
+        ok = [m for m in self.tuned if m["p99_us"] <= p99_target_us]
+        if not ok:
+            raise LookupError(
+                f"no tuned operating point meets p99 <= {p99_target_us}us: "
+                f"run autotune(queries, p99_target_us={p99_target_us}) on "
+                "this index and save it"
+            )
+        return max(ok, key=lambda m: m["recall"])["params"]
 
     # -------------------------------------------------------------- lifecycle
     def save(self, directory: str) -> None:

@@ -4,7 +4,8 @@
 The artifact is the reference's, byte for byte in layout:
 
   <dir>/manifest.json   versioned JSON: kind, config, geometry, build stats,
-                        residency, metadata schema and vocabulary
+                        residency, autotuned operating points, metadata
+                        schema and vocabulary
   <dir>/pages.bin       the packed page records as raw page-aligned f32,
                         opened with ``np.memmap`` on load
   <dir>/arrays.npz      numpy sidecars: memory tier, LSH router, id maps,
@@ -43,7 +44,12 @@ from repro_torch.core import layout as layout_mod
 from repro_torch.core import page_graph as pg_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core import stream as stream_mod
-from repro_torch.core.config import MemoryBudget, MemoryMode, PageANNConfig
+from repro_torch.core.config import (
+    MemoryBudget,
+    MemoryMode,
+    PageANNConfig,
+    SearchParams,
+)
 from repro_torch.core.filter import MetaArrays, MetadataSchema
 from repro_torch.core.lsh import LSHIndex
 from repro_torch.device import resolve_device
@@ -271,9 +277,38 @@ def save_pageann(index, directory: str) -> None:
                 resident_pages=store.resident_pages,
                 total_pages=pages,
             ),
-            tuned=dict(default=None, points=[]),
+            # autotuned operating points (index.autotune) and the one
+            # searches resolve as the default SearchParams
+            tuned=_tuned_to_json(index),
             schema=_schema_to_json(index),
         ),
+    )
+
+
+def _tuned_to_json(index) -> dict:
+    points = []
+    for m in index.tuned:
+        doc = {key: val for key, val in m.items() if key != "params"}
+        doc["params"] = m["params"].to_json()
+        points.append(doc)
+    default = index.tuned_default
+    return dict(
+        default=default.to_json() if default is not None else None,
+        points=points,
+    )
+
+
+def _tuned_from_json(doc: dict | None) -> tuple[list, SearchParams | None]:
+    if not doc:            # artifacts from before autotuning carry none
+        return [], None
+    points = []
+    for entry in doc.get("points", []):
+        m = dict(entry)
+        m["params"] = SearchParams.from_json(m["params"])
+        points.append(m)
+    default = doc.get("default")
+    return points, (
+        SearchParams.from_json(default) if default is not None else None
     )
 
 
@@ -412,19 +447,14 @@ def load_pageann(directory: str, *, device: str | torch.device = "cuda",
     reference does. ``pages.bin`` is opened as a memmap. ``memory_budget``
     (see :func:`index_from_arrays`) keeps only the hottest pages on the
     device and streams the rest per hop; results equal a fully resident
-    load bit for bit. An autotuned default in the artifact raises
-    ``NotImplementedError`` (ROADMAP queue A, item 5).
+    load bit for bit. The manifest's ``tuned`` section (``autotune``'s
+    operating points) comes back as ``tuned`` and ``tuned_default``.
     """
     from repro_torch.core.index import BuildStats
 
     doc = read_manifest(directory)
     if doc["kind"] != "pageann":
         raise ValueError(f"{directory}: kind={doc['kind']!r}, not a PageANN index")
-    if (doc.get("tuned") or {}).get("default") is not None:
-        raise NotImplementedError(
-            f"{directory}: the index carries an autotuned default, which is "
-            "not ported yet: ROADMAP queue A, item 5"
-        )
     cfg = config_from_json(doc["config"])
 
     pages_path = _check_pages_bin(directory, doc)
@@ -446,6 +476,7 @@ def load_pageann(directory: str, *, device: str | torch.device = "cuda",
                               memory_budget=memory_budget)
     (index.schema, index.vocab, index.meta,
      index.meta_host) = _load_meta(directory, doc, index.store, index.device)
+    index.tuned, index.tuned_default = _tuned_from_json(doc.get("tuned"))
     return index
 
 

@@ -1,11 +1,13 @@
 """PageANN graph search — Algorithm 2, as a batched PyTorch loop.
 
 Port of ``repro.core.search``: fully resident and memory-budgeted
-(streamed) search, with or without a metadata filter (adaptive search is
-not ported yet). The reference ``vmap``s a ``lax.while_loop`` over queries; here
-every tensor of the per-query :class:`BeamState` carries a leading query
-axis and one Python loop runs the hops for the whole batch. Each hop
-applies the same three transitions:
+(streamed) search, with or without a metadata filter, with or without the
+adaptive knobs (``AdaptiveParams``: query-sensitive entry selection and
+per-query early termination), and the per-hop profile
+(``profile_search``). The reference ``vmap``s a ``lax.while_loop`` over
+queries; here every tensor of the per-query :class:`BeamState` carries a
+leading query axis and one Python loop runs the hops for the whole batch.
+Each hop applies the same three transitions:
 
   ``select_batch``      pick up to b closest unvisited candidates on fresh
                         pages (a stable sort of the beam by distance, then
@@ -20,7 +22,8 @@ applies the same three transitions:
 A lane whose loop condition is false is frozen, as under ``vmap``: the hop
 runs only on the active lanes and their new state is written back, so a
 finished query's state never changes. The loop ends when no lane is active,
-which costs one host sync per hop.
+which costs one host sync per hop. Early termination is one more reason to
+freeze a lane: its worst top-k distance stalled for ``patience`` hops.
 
 Streamed search (``stream_search``) keeps only part of the page records on
 the device. Each hop looks its pages up in ``resident_map``, reads the
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import pq as pq_mod
@@ -122,6 +126,11 @@ class BeamState(NamedTuple):
     io: torch.Tensor         # (Q,) page reads served from 'disk'
     cache_hits: torch.Tensor  # (Q,) page reads served by the warmed cache
     hops: torch.Tensor       # (Q,) loop iterations
+    # early termination (None unless patience is set): the worst running
+    # top-k distance after the last hop, and how many consecutive hops
+    # failed to improve it by more than epsilon
+    frontier: torch.Tensor | None = None   # (Q,) f32
+    stall: torch.Tensor | None = None      # (Q,) int32
 
 
 def _top_k_merge(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -154,6 +163,9 @@ def init_state(
     beam: int,
     k: int,
     entries: int,
+    entry_slack: int | None = None,
+    min_entries: int = 1,
+    patience: int | None = None,
     impl: str | None = None,
 ) -> BeamState:
     """In-memory routing (Alg. 2 line 4, Fig. 6 step 1): LSH entry points.
@@ -161,17 +173,28 @@ def init_state(
     q: (Q, d), disk_lut: (Q, M_disk, K). The Hamming sweep and its top-T
     run in one ``hamming_topk`` kernel, the entry estimates through
     ``pq_adc``. The top-T is stable (lower sample first on ties, as
-    ``lax.top_k``), because small-integer Hamming scores tie often; its
-    values are what the reference's ``entry_slack`` reads (A5).
+    ``lax.top_k``), because small-integer Hamming scores tie often.
+
+    With entry selection on (``entry_slack`` not None), only the entries
+    within ``entry_slack`` bits of the query's best one seed the beam, and
+    never fewer than ``min_entries`` by rank; the others are masked to
+    PAD/INF in place, before duplicates are masked, as the reference does.
+    The reference compares float32 casts of the Hamming values; for
+    integers this small an int32 compare is the same.
     """
     nq = q.shape[0]
     dev = q.device
     num_pages = data.member_count.shape[0]
     qcode = hash_codes(q, data.lsh_planes)
-    _, top = ops.hamming_topk(data.lsh_codes, qcode, entries, impl=impl)
+    ham_top, top = ops.hamming_topk(data.lsh_codes, qcode, entries, impl=impl)
     top = top.long()                                            # (Q, T)
     entry_ids = data.lsh_ids[top].to(torch.int32)               # (Q, T)
     entry_d = ops.pq_adc_gather(data.lsh_pq, top, disk_lut, impl=impl)  # (Q, T)
+    if entry_slack is not None:
+        keep = ((ham_top <= ham_top[:, :1] + entry_slack)
+                | (torch.arange(entries, device=dev) < min_entries))
+        entry_ids = torch.where(keep, entry_ids, PAD)
+        entry_d = torch.where(keep, entry_d, INF)
     entry_d = _mask_dups_keep_first(entry_ids, entry_d)
 
     cand_ids = torch.full((nq, beam), PAD, dtype=torch.int32, device=dev)
@@ -189,6 +212,9 @@ def init_state(
         io=zeros,
         cache_hits=zeros.clone(),
         hops=zeros.clone(),
+        frontier=(None if patience is None else
+                  torch.full((nq,), INF, dtype=torch.float32, device=dev)),
+        stall=None if patience is None else zeros.clone(),
     )
 
 
@@ -431,9 +457,18 @@ def merge(
     nbr_d: torch.Tensor,
     io_delta: torch.Tensor,
     hit_delta: torch.Tensor,
+    *,
+    patience: int | None = None,
+    epsilon: float = 0.0,
 ) -> BeamState:
     """Fold exact member scores into the result top-k and estimated
-    neighbour scores into the beam (Alg. 2 line 12, Fig. 6 step 5)."""
+    neighbour scores into the beam (Alg. 2 line 12, Fig. 6 step 5).
+
+    With early termination on (``patience``), the convergence signal
+    updates here: the worst of the new top-k either improved on the
+    frontier by more than ``epsilon`` (stall resets) or it did not (stall
+    counts up); ``_active`` freezes the lane once stall reaches
+    ``patience``."""
     k = state.res_ids.shape[1]
     beam = state.cand_ids.shape[1]
 
@@ -445,6 +480,15 @@ def merge(
     cand_vis = torch.cat(
         [state.cand_vis, torch.zeros_like(nbr_ids, dtype=torch.bool)], 1
     ).gather(1, order)
+    frontier, stall = state.frontier, state.stall
+    if patience is not None:
+        # float32 throughout, as the reference's jnp.float32(epsilon): the
+        # Python scalar holds epsilon rounded to float32 and the subtraction
+        # runs in float32, so INF - epsilon stays INF on the opening hops
+        worst = res_d[:, k - 1]
+        improved = worst < state.frontier - float(np.float32(epsilon))
+        frontier = worst
+        stall = torch.where(improved, 0, state.stall + 1)
     return state._replace(
         cand_ids=cand_ids,
         cand_d=cand_d,
@@ -454,65 +498,124 @@ def merge(
         io=state.io + io_delta,
         cache_hits=state.cache_hits + hit_delta,
         hops=state.hops + 1,
+        frontier=frontier,
+        stall=stall,
     )
 
 
-def _active(state: BeamState, max_hops: int) -> torch.Tensor:
+class _Knobs(NamedTuple):
+    """The hop loop's knobs: ``params`` resolved against the index's
+    build-time ``capacity`` and ``mode`` (the reference's
+    ``_impl_kwargs``)."""
+
+    capacity: int
+    mode: str
+    beam: int
+    io_batch: int
+    k: int
+    max_hops: int
+    entries: int
+    patience: int | None
+    epsilon: float
+    entry_slack: int | None
+    min_entries: int
+
+
+def _knobs(params: SearchParams, capacity: int, mode: str) -> _Knobs:
+    """Every violated invariant of ``params`` in one ``ValueError``."""
+    problems = params.pageann_violations()
+    if problems:
+        raise ValueError(
+            "invalid SearchParams for PageANN search: " + "; ".join(problems)
+        )
+    a = params.adaptive
+    return _Knobs(
+        capacity=capacity,
+        mode=mode,
+        beam=params.beam_width,
+        io_batch=params.io_batch,
+        k=params.k,
+        max_hops=params.max_hops,
+        entries=params.lsh_entries,
+        patience=None if a is None else a.patience,
+        epsilon=0.0 if a is None else a.epsilon,
+        entry_slack=None if a is None else a.entry_slack_bits,
+        min_entries=1 if a is None else a.min_entries,
+    )
+
+
+def _active(state: BeamState, kn: _Knobs) -> torch.Tensor:
     """The reference's while-loop ``cond``, per lane: a live (unexpanded,
-    finite) candidate remains and the hop budget is not spent."""
+    finite) candidate remains, the hop budget is not spent and, with early
+    termination on, the top-k has not stalled for ``patience`` hops."""
     live = (~state.cand_vis) & (state.cand_ids != PAD) & torch.isfinite(state.cand_d)
-    return live.any(1) & (state.hops < max_hops)
+    go = live.any(1) & (state.hops < kn.max_hops)
+    if kn.patience is not None:
+        go = go & (state.stall < kn.patience)
+    return go
 
 
-def _search_batch(
-    queries: torch.Tensor,
-    data: SearchData,
-    *,
-    capacity: int,
-    beam: int,
-    io_batch: int,
-    k: int,
-    max_hops: int,
-    entries: int,
-    mode: str,
-    fetch: PinnedStage | None = None,
-    meta: MetaArrays | None = None,
-    cfilter: CompiledFilter | None = None,
-    impl: str | None = None,
-) -> SearchResult:
+def _start(
+    queries: torch.Tensor, data: SearchData, kn: _Knobs, impl: str | None,
+) -> tuple[BeamState, torch.Tensor, torch.Tensor | None]:
+    """The ADC tables and the routed initial state: (state, disk_lut,
+    mem_lut)."""
     disk_lut = pq_mod.pq_lut(queries, data.disk_codebooks)   # (Q, M_disk, K)
     # the finer in-memory tables are dead weight in DISK_ONLY mode
     mem_lut = (
         pq_mod.pq_lut(queries, data.mem_codebooks)            # (Q, M_mem, K)
-        if mode != MemoryMode.DISK_ONLY.value
+        if kn.mode != MemoryMode.DISK_ONLY.value
         else None
     )
     state = init_state(
-        queries, data, disk_lut, beam=beam, k=k, entries=entries, impl=impl
+        queries, data, disk_lut, beam=kn.beam, k=kn.k, entries=kn.entries,
+        entry_slack=kn.entry_slack, min_entries=kn.min_entries,
+        patience=kn.patience, impl=impl,
     )
-    nq = queries.shape[0]
-    while True:
-        lanes = _active(state, max_hops).nonzero().squeeze(1)
-        n = lanes.numel()                      # the hop's one host sync
-        if n == 0:
-            break
-        if n == nq:
-            sub, q, dl, ml = state, queries, disk_lut, mem_lut
-        else:
-            sub = BeamState(*(t[lanes] for t in state))
-            q, dl = queries[lanes], disk_lut[lanes]
-            ml = None if mem_lut is None else mem_lut[lanes]
-        sub, batch = select_batch(sub, capacity=capacity, io_batch=io_batch)
-        sub = merge(sub, *score_page_batch(
-            q, data, batch, sub, dl, ml, capacity=capacity, mode=mode,
-            fetch=fetch, meta=meta, cfilter=cfilter, impl=impl,
-        ))
-        if n == nq:
-            state = sub
-        else:
-            # frozen lanes keep their state; the loop owns these tensors
-            for full, part in zip(state, sub):
+    return state, disk_lut, mem_lut
+
+
+def _hop(
+    state: BeamState,
+    lanes: torch.Tensor,
+    queries: torch.Tensor,
+    disk_lut: torch.Tensor,
+    mem_lut: torch.Tensor | None,
+    data: SearchData,
+    kn: _Knobs,
+    *,
+    fetch: PinnedStage | None,
+    meta: MetaArrays | None,
+    cfilter: CompiledFilter | None,
+    impl: str | None,
+) -> tuple[BeamState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One hop of the active ``lanes``; the other lanes stay frozen.
+    Returns the new state (the input's tensors, written in place, when a
+    lane is frozen), and the lanes' (n, b) page batch and I/O and cache-hit
+    deltas."""
+    everyone = lanes.numel() == queries.shape[0]
+    if everyone:
+        sub, q, dl, ml = state, queries, disk_lut, mem_lut
+    else:
+        sub = BeamState(*(None if t is None else t[lanes] for t in state))
+        q, dl = queries[lanes], disk_lut[lanes]
+        ml = None if mem_lut is None else mem_lut[lanes]
+    sub, batch = select_batch(sub, capacity=kn.capacity, io_batch=kn.io_batch)
+    scored = score_page_batch(
+        q, data, batch, sub, dl, ml, capacity=kn.capacity, mode=kn.mode,
+        fetch=fetch, meta=meta, cfilter=cfilter, impl=impl,
+    )
+    sub = merge(sub, *scored, patience=kn.patience, epsilon=kn.epsilon)
+    if not everyone:
+        # frozen lanes keep their state; the loop owns these tensors
+        for full, part in zip(state, sub):
+            if full is not None:
                 full[lanes] = part
+        sub = state
+    return sub, batch, scored[4], scored[5]
+
+
+def _result(state: BeamState) -> SearchResult:
     return SearchResult(
         ids=state.res_ids, dists=state.res_d, ios=state.io,
         hops=state.hops, cache_hits=state.cache_hits,
@@ -534,38 +637,24 @@ def batch_search(
     """Search a batch of queries. queries: (Q, d) on the data's device.
 
     ``params`` carries the per-call runtime knobs (beam L, io batch b, max
-    hops, LSH top-T, k); ``capacity`` and ``mode`` are build-time
-    properties of the index. Filtered search passes ``meta`` (the index's
-    page-slot-aligned metadata on the device) and ``cfilter`` (the compiled
-    predicate); with both ``None`` the search is the unfiltered one.
-    ``impl="plain"`` runs every kernel's plain version (tests and the chip
-    smoke compare the two). ``fetch`` is the streamed tier's hook; callers
-    go through ``stream_search``.
+    hops, LSH top-T, k, and the adaptive knobs); ``capacity`` and ``mode``
+    are build-time properties of the index. An all-default
+    ``AdaptiveParams()`` runs exactly the non-adaptive loop. Filtered search
+    passes ``meta`` (the index's page-slot-aligned metadata on the device)
+    and ``cfilter`` (the compiled predicate); with both ``None`` the search
+    is the unfiltered one. ``impl="plain"`` runs every kernel's plain
+    version (tests and the chip smoke compare the two). ``fetch`` is the
+    streamed tier's hook; callers go through ``stream_search``.
     """
-    problems = params.pageann_violations()
-    if problems:
-        raise ValueError(
-            "invalid SearchParams for PageANN search: " + "; ".join(problems)
-        )
-    if params.adaptive is not None:
-        raise NotImplementedError(
-            "adaptive search (SearchParams.adaptive) is not ported yet: "
-            "ROADMAP queue A, item 5"
-        )
-    return _search_batch(
-        queries, data,
-        capacity=capacity,
-        beam=params.beam_width,
-        io_batch=params.io_batch,
-        k=params.k,
-        max_hops=params.max_hops,
-        entries=params.lsh_entries,
-        mode=mode,
-        fetch=fetch,
-        meta=meta,
-        cfilter=cfilter,
-        impl=impl,
-    )
+    kn = _knobs(params, capacity, mode)
+    state, disk_lut, mem_lut = _start(queries, data, kn, impl)
+    while True:
+        lanes = _active(state, kn).nonzero().squeeze(1)
+        if lanes.numel() == 0:                 # the hop's one host sync
+            break
+        state = _hop(state, lanes, queries, disk_lut, mem_lut, data, kn,
+                     fetch=fetch, meta=meta, cfilter=cfilter, impl=impl)[0]
+    return _result(state)
 
 
 def stream_search(
@@ -624,3 +713,80 @@ def merge_topk_streams(
     vals, idx = _top_k_merge(d, k)
     merged = torch.gather(ids, 1, idx)
     return torch.where(torch.isfinite(vals), merged, PAD), vals
+
+
+# --------------------------------------------------------------------------
+# profiling entry point: the same hops, with the per-hop trail kept
+# --------------------------------------------------------------------------
+
+class HopProfile(NamedTuple):
+    """Per-hop trail of a profiled search (leading dims (Q, max_hops)).
+
+    Hops past a query's exit carry ``active=False`` with PAD pages and
+    zero deltas. ``worst_topk`` is the worst running top-k distance after
+    the hop (the early-termination frontier); ``stall`` is the adaptive
+    patience counter after the hop (zeros when the params are not
+    adaptive). A frozen lane records its frozen state's worst and stall,
+    on every hop up to ``max_hops``, as the reference's ``lax.scan`` does.
+    """
+
+    pages: torch.Tensor       # (Q, H, b) int32 page ids scheduled, PAD padded
+    ios: torch.Tensor         # (Q, H) int32 disk page reads this hop
+    cache_hits: torch.Tensor  # (Q, H) int32 cached page reads this hop
+    active: torch.Tensor      # (Q, H) bool: did the lane hop
+    worst_topk: torch.Tensor  # (Q, H) f32 worst running top-k distance
+    stall: torch.Tensor       # (Q, H) int32 patience counter after the hop
+
+
+def profile_search(
+    queries: torch.Tensor,
+    data: SearchData,
+    params: SearchParams,
+    *,
+    capacity: int,
+    mode: str,
+    meta: MetaArrays | None = None,
+    cfilter: CompiledFilter | None = None,
+) -> tuple[SearchResult, HopProfile]:
+    """``batch_search`` plus the per-hop trail (opt-in debug mode).
+
+    The same loop over the same hop (``select_batch`` -> ``score_page_batch``
+    -> ``merge``), so ids, distances, ios, hops and cache hits equal
+    ``batch_search``'s bit for bit; the trail is written as the loop runs,
+    so an unprofiled search pays nothing for it. Resident indexes only.
+    """
+    kn = _knobs(params, capacity, mode)
+    nq, dev, h_max = queries.shape[0], queries.device, kn.max_hops
+    pages = torch.full((nq, h_max, kn.io_batch), PAD, dtype=torch.int32,
+                       device=dev)
+    ios = torch.zeros((nq, h_max), dtype=torch.int32, device=dev)
+    hits = torch.zeros_like(ios)
+    active = torch.zeros((nq, h_max), dtype=torch.bool, device=dev)
+    worst = torch.empty((nq, h_max), dtype=torch.float32, device=dev)
+    stall = torch.zeros_like(ios)
+
+    state, disk_lut, mem_lut = _start(queries, data, kn, None)
+    h = 0
+    while True:
+        lanes = _active(state, kn).nonzero().squeeze(1)
+        if lanes.numel() == 0:
+            break
+        state, batch, io_delta, hit_delta = _hop(
+            state, lanes, queries, disk_lut, mem_lut, data, kn,
+            fetch=None, meta=meta, cfilter=cfilter, impl=None)
+        pages[lanes, h] = batch
+        ios[lanes, h] = io_delta
+        hits[lanes, h] = hit_delta
+        active[lanes, h] = True
+        worst[:, h] = state.res_d[:, kn.k - 1]
+        if kn.patience is not None:
+            stall[:, h] = state.stall
+        h += 1
+    # every lane is frozen from here on: its trail repeats its final state
+    worst[:, h:] = state.res_d[:, kn.k - 1:kn.k]
+    if kn.patience is not None:
+        stall[:, h:] = state.stall[:, None]
+    return _result(state), HopProfile(
+        pages=pages, ios=ios, cache_hits=hits, active=active,
+        worst_topk=worst, stall=stall,
+    )

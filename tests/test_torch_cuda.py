@@ -595,3 +595,115 @@ def test_mutable_index_on_the_card(cuda, tmp_path):
     for field in got._fields:
         np.testing.assert_array_equal(getattr(loaded.search(q, k=10), field),
                                       getattr(got, field))
+
+
+@pytest.fixture(scope="module")
+def card_index():
+    """A small HYBRID index built on the card, and its queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.core import MemoryMode, PageANNConfig, PageANNIndex
+    from repro_torch.data.pipeline import clustered_vectors, query_vectors
+
+    x = clustered_vectors(1500, 32, num_clusters=16, seed=0)
+    cfg = PageANNConfig(dim=32, graph_degree=12, build_beam=24, build_rounds=1,
+                        pq_subspaces=8, lsh_sample=256, lsh_entries=8,
+                        beam_width=48, max_hops=48, memory_mode=MemoryMode.HYBRID)
+    return PageANNIndex.build(x, cfg, device="cuda"), query_vectors(x, 200, seed=1)
+
+
+ADAPTIVE_CASES = [dict(patience=1), dict(patience=2, epsilon=0.05),
+                  dict(entry_slack_bits=0, min_entries=1),
+                  dict(patience=2, entry_slack_bits=2, min_entries=4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", ADAPTIVE_CASES, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+def test_adaptive_search_through_the_kernels_matches_plain(card_index, tmp_path, kw):
+    """Adaptive search through the kernels against the plain versions on
+    the card: ids, ios and hops equal for at least 99% of queries (the
+    float kernels sum in another order, so a near tie may go the other
+    way); ``AdaptiveParams()`` is the plain search exactly; streamed equals
+    resident exactly."""
+    from repro_torch.core import AdaptiveParams, PageANNIndex, SearchParams
+
+    index, q = card_index
+    base = SearchParams.from_config(index.cfg)
+    p = base.replace(adaptive=AdaptiveParams(**kw))
+    ops.reset_launch_counts()
+    got = index.search(q, params=p)
+    counts = ops.launch_counts()
+    assert counts["hamming"] == 1 and counts["page_scan"] > 0 and counts["pq_adc"] > 0
+    plain = index.search(q, params=p, impl="plain")
+    same = ((got.ids == plain.ids).all(1) & (got.ios == plain.ios)
+            & (got.hops == plain.hops))
+    assert same.mean() >= 0.99
+    want = index.search(q, params=base)
+    off = index.search(q, params=base.replace(adaptive=AdaptiveParams()))
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(off, field), getattr(want, field))
+    if "entry_slack_bits" not in kw:
+        assert (got.hops <= want.hops).all() and (got.ios <= want.ios).all()
+    index.save(str(tmp_path / "idx"))
+    streamed = PageANNIndex.load(str(tmp_path / "idx"), device="cuda",
+                                 memory_budget=0.25)
+    again = streamed.search(q, params=p)
+    for field in got._fields:
+        np.testing.assert_array_equal(getattr(again, field), getattr(got, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slack,min_entries", [(0, 1), (2, 4), (64, 1)])
+def test_hamming_topk_values_select_the_entries(card_index, slack, min_entries):
+    """The routing's top-T values as entry selection reads them: the kernel's
+    equal the plain version's exactly, and so the seeded beam does (ids
+    exactly, estimates within the float tolerance)."""
+    from repro_torch.core import pq
+    from repro_torch.core.lsh import hash_codes
+    from repro_torch.core.search import init_state
+
+    index, q = card_index
+    data = index.data
+    qt = torch.as_tensor(q).cuda()
+    t = index.cfg.lsh_entries
+    qcode = hash_codes(qt, data.lsh_planes)
+    vals, idx = ops.hamming_topk(data.lsh_codes, qcode, t)
+    pvals, pidx = ops.hamming_topk(data.lsh_codes, qcode, t, impl="plain")
+    assert vals.dtype == torch.int32
+    assert torch.equal(vals, pvals) and torch.equal(idx, pidx)
+    assert (vals[:, 1:] >= vals[:, :-1]).all()
+    lut = pq.pq_lut(qt, data.disk_codebooks)
+    kw = dict(beam=48, k=10, entries=t, entry_slack=slack,
+              min_entries=min_entries, patience=2)
+    got = init_state(qt, data, lut, **kw)
+    want = init_state(qt, data, lut, impl="plain", **kw)
+    assert torch.equal(got.cand_ids, want.cand_ids)
+    torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=1e-4)
+    kept = (got.cand_ids[:, :t] >= 0).sum(1)
+    assert (kept >= min_entries).all()
+    if slack == 0:
+        assert (kept < t).any()
+    assert torch.isinf(got.frontier).all() and (got.stall == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patience", [None, 2])
+def test_profile_equals_search_on_the_card(card_index, patience):
+    from repro_torch.core import AdaptiveParams, SearchParams
+
+    index, q = card_index
+    p = SearchParams.from_config(index.cfg).replace(
+        adaptive=None if patience is None else AdaptiveParams(patience=patience))
+    want = index.search(q, params=p)
+    got, trail = index.profile(q, params=p)
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    np.testing.assert_array_equal(trail.active.sum(1), got.hops)
+    np.testing.assert_array_equal(trail.ios.sum(1), got.ios)
+    np.testing.assert_array_equal(trail.cache_hits.sum(1), got.cache_hits)
+    assert (trail.pages[~trail.active] == -1).all()
+    last = trail.worst_topk[np.arange(len(q)), got.hops - 1]
+    np.testing.assert_array_equal(last, got.dists[:, -1])
+    if patience is None:
+        assert not trail.stall.any()

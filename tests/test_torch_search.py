@@ -36,7 +36,6 @@ from repro_torch.core import (
 )
 from repro_torch.core import lsh as tlsh
 from repro_torch.core import search as tsearch
-from repro_torch.core.config import AdaptiveParams
 
 # six test workers share the host's cores; the port's small tensors gain
 # nothing from more intra-op threads than one
@@ -228,23 +227,14 @@ def test_frozen_lanes_do_not_change(saved, dataset):
 
 
 # ------------------------------------------------------------ refusals
-def test_unported_options_raise_not_implemented(saved, dataset, tmp_path):
-    """Adaptive search is not ported yet (ROADMAP A5) and says so; filtered
-    search and memory budgets are, and refuse what the reference refuses."""
+def test_filters_and_budgets_refuse_what_the_reference_refuses(saved, dataset, tmp_path):
+    """Filtered search needs a schema, and a manifest that declares one
+    needs its metadata sidecar; a memory budget loads a streamed index."""
     _, directory = saved
     _, q = dataset
     tindex = load_pageann(directory, device="cpu")
     with pytest.raises(ValueError, match="no MetadataSchema"):
         tindex.search(q, filter=Tag("lang") == "en")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tindex.search(q, params=SearchParams(adaptive=AdaptiveParams(patience=2)))
-    tuned = str(tmp_path / "tuned")
-    shutil.copytree(directory, tuned)
-    doc = json.load(open(os.path.join(tuned, persist.MANIFEST)))
-    doc["tuned"] = {"default": SearchParams().to_json(), "points": []}
-    json.dump(doc, open(os.path.join(tuned, persist.MANIFEST), "w"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        load_pageann(tuned, device="cpu")
     assert load_pageann(directory, device="cpu", memory_budget=0.5).fetcher is not None
     copy = str(tmp_path / "schema")
     shutil.copytree(directory, copy)
