@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 6-8 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 9-11 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -19,9 +19,10 @@ version. Phases, one JSON line each:
             streamed hop with 25% of those pages on the card and the rest
             read from a pages.bin memmap
   e2e       ``PageANNIndex.build`` (with a seeded metadata schema) ->
-            ``search`` -> ``recall_at_k`` in HYBRID (the main path) and
-            MEM_ALL (members-only page scan), once through the kernels and
-            once through the plain versions
+            ``search`` -> ``recall_at_k`` in HYBRID (the main path, 10,000
+            vectors) and MEM_ALL (members-only page scan, 5,000 vectors:
+            half the depth, so the baselines' build fits the time), once
+            through the kernels and once through the plain versions
   stream    each e2e index saved and reloaded under a 0.25 memory budget:
             the streamed search must equal the resident one exactly
   filter    filtered search at selectivities 0.5 / 0.1 / 0.01 and a
@@ -45,6 +46,24 @@ version. Phases, one JSON line each:
             filtered, held to a brute force over the live set; dirty save,
             load (resident and under the budget); then a compaction that
             an insert triggers on a 1,000-vector index
+  baselines ``DiskANNIndex.build`` over the HYBRID e2e data and
+            ``StarlingIndex.from_data`` on its graph and codebooks with
+            ``group_pages``' layout, searched at the default SearchParams
+            and at beam 128 through the kernels (``pq_adc`` estimates,
+            ``page_gather_l2`` rerank) and the plain versions: ids equal
+            for >= 99% of queries, ios and hops equal, recall@10 >= 0.85 at
+            beam 128, Starling's mean ios below DiskANN's, a save and
+            ``load_index`` equal exactly; printed beside PageANN's HYBRID
+            recall, ios and QPS (the paper's comparison)
+  serve     a ``VectorService`` over the HYBRID index (saved, attached),
+            the DiskANN index and a ``MutableIndex`` over the HYBRID index,
+            a ``BatchingEngine`` at batch 64: 1,000 requests from 4 threads
+            equal to each collection's direct search; 300 more through a
+            2 ms timeout and no flush (the timer's dispatches), equal as
+            well, with their QPS and latency; the compile cache, 200
+            inserts and 100 deletes, ``save_database`` / ``load_database``,
+            ``HttpFrontend`` (20 searches, one ``/metrics`` scrape), every
+            engine span phase; the engine's QPS and p50 / p99 latency
 
 The kernels phase also holds ``l2_distance`` (the delta scan, with and
 without its keep mask) and ``page_gather_l2`` against their plain versions,
@@ -57,10 +76,10 @@ runs one delta scan over 262,144 vectors and the re-score over 1,000,000
 code rows. Each e2e search must launch ``hamming`` once and sort no (Q, S)
 row of distances. The compaction must equal a fresh build of the merged set
 in every array and search output. Each kernel's launches come from the path
-it serves, counted from 0 just before that path's run; the only paths of
-``page_gather_l2`` and of the distances alone are their own entry points
-``ops.page_gather_l2`` and ``ops.hamming``, each driven once in the kernels
-phase. Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
+it serves, counted from 0 just before that path's run: ``page_gather_l2``'s
+from the DiskANN search (its exact rerank, where it is timed at the
+baseline's shapes, (N, 1, d) pages), the distances alone from their own
+entry point ``ops.hamming``, driven once in the kernels phase. Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero without the last line. It also exits non-zero
 when no CUDA device is present or when it is run outside a checkout of the
@@ -88,6 +107,11 @@ INF = float("inf")
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-4     # float kernels: the summation order differs
 N_QUERIES = 1000            # one search batch, as a serving engine would send
+# MEM_ALL's e2e vectors: half the main path's depth. The baselines' Vamana
+# build costs as much as an e2e build (153-167 s against 139-171 s on the
+# card's host), and with MEM_ALL at 10,000 the smoke took 493 s before that
+# build was added: the extra one would take it past 9 minutes
+N_MEMALL = 5000
 BUDGET = 0.25               # the streamed tier: a quarter of the pages resident
 SELECTIVITIES = (0.5, 0.1, 0.01)
 MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered search,
@@ -149,7 +173,7 @@ PATHS = {
     "page_scan_recs_masked": "filter (streamed)",
     "page_scan_recs_members_masked": "filter_memall (streamed)",
     "l2_distance": "mutable (the delta scan)",
-    "page_gather_l2": "kernels (its only caller is ops.page_gather_l2)",
+    "page_gather_l2": "baselines (the DiskANN search's exact rerank)",
     "hamming_distances": "kernels (its only caller is ops.hamming)",
 }
 
@@ -581,29 +605,29 @@ def _l2_case(s: Smoke, q, x, reps: int, keep=None) -> dict:
     )
 
 
-def _page_gather_case(s: Smoke, recs, ids, q, *, cap: int) -> dict:
-    """``page_gather_l2`` over the main path's HYBRID page vectors (d = 128:
-    member i is row i of its record, so the (P, cap, d) pages are the first
-    cap rows): its path (one call of ``ops.page_gather_l2``, counted), its
-    plain version, and ``page_scan``'s member scores on the same pages."""
+def _page_gather_case(s: Smoke, pages, ids, q, *, recs=None) -> dict:
+    """``page_gather_l2`` on (P, cap, d) pages: its path (one call of
+    ``ops.page_gather_l2``, counted), its plain version, and, given the
+    packed ``recs`` of the same pages (HYBRID, d = 128: member i is row i
+    of its record), ``page_scan``'s member scores, which must be equal bit
+    for bit (one per-member reduction order in both kernels)."""
     torch = s.torch
     from repro_torch.kernels import ops
 
-    pages = recs[:, :cap, :].contiguous()
+    _, cap, d = pages.shape
     ops.reset_launch_counts()
     got = ops.page_gather_l2(pages, ids, q)            # the path, counted
     launches = ops.launch_counts()["page_gather_l2"]
     err = s.compare("page_gather_l2", got,
                     ops.page_gather_l2(pages, ids, q, impl="plain"))
-    md, _ = ops.page_scan(recs, ids, q, None, capacity=cap, dim=q.shape[1],
-                          rp=1, compute_adc=False)
-    # one per-member reduction order in both kernels
-    if not torch.equal(got, md):
-        raise AssertionError("page_gather_l2: member distances differ from "
-                             "page_scan's")
+    if recs is not None:
+        md, _ = ops.page_scan(recs, ids, q, None, capacity=cap, dim=d,
+                              rp=1, compute_adc=False)
+        if not torch.equal(got, md):
+            raise AssertionError("page_gather_l2: member distances differ "
+                                 "from page_scan's")
     nq, b = ids.shape
     distinct = int(torch.unique(ids).numel())
-    d = q.shape[1]
     return dict(
         name="page_gather_l2", q=nq, b=b, capacity=cap, dim=d,
         launches=launches, max_abs_err=err,
@@ -661,9 +685,10 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
             _members_equal_adc(s, recs, ids, q, lut, cap=cap, dim=cfg.dim,
                                rp=rp)
         if cfg is cfg_hybrid:
-            # page_gather_l2 at the main path's HYBRID page store
-            s.rows["page_gather_l2"] = _page_gather_case(s, recs, ids, q, cap=cap)
-            cases.append(s.rows["page_gather_l2"])
+            # page_gather_l2 on the HYBRID page store (its row in the
+            # kernels line comes from the baseline path's shapes)
+            cases.append(_page_gather_case(
+                s, recs[:, :cap, :].contiguous(), ids, q, recs=recs))
         if cfg is cfg_hybrid or cfg is cfg_memall:
             s.rows[row["name"]] = row
             # the filtered (masked) and streamed (staged) variants at the
@@ -1739,6 +1764,465 @@ def run_compaction(cfg, *, device: str, seed: int,
     return out
 
 
+# the baselines' operating points: the default SearchParams, and a beam
+# of 128, where DiskANN's recall@10 meets PageANN HYBRID's at its default
+# (0.9651 against 0.9604 on an H100 over this data); the paper compares the
+# systems at comparable recall. At the default beam DiskANN's 16-byte PQ
+# estimates leave recall@10 at 0.7687 here, so the reference test's floor
+# of 0.85 is held at the second point
+BASELINE_POINTS = {"default": {}, "beam128": {"beam_width": 128}}
+BASELINE_MIN_RECALL = 0.85
+BASELINE_RECALL_POINT = "beam128"
+
+
+def _baseline_point(index, q, truth, p, *, device: str) -> tuple[dict, object]:
+    """One baseline search at params ``p``: counted through the kernels,
+    then the plain versions; ids equal for >= 99% of queries, ios and hops
+    equal exactly. Returns (numbers, the kernels' result)."""
+    import numpy as np
+
+    from repro_torch.core import recall_at_k
+    from repro_torch.kernels import ops
+
+    index.search(q, params=p)                     # warm-up
+    index.search(q, params=p, impl="plain")
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = index.search(q, params=p)               # the baseline path, counted
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    plain = index.search(q, params=p, impl="plain")
+    wall = _median_wall(lambda: index.search(q, params=p), device)
+    row = dict(
+        beam=p.beam_width, recall_at_10=recall_at_k(res.ids, truth),
+        plain_recall_at_10=recall_at_k(plain.ids, truth),
+        mean_ios=float(res.ios.mean()), mean_hops=float(res.hops.mean()),
+        max_hops=int(res.hops.max()), qps=len(q) / wall,
+        ids_agree_share=float((res.ids == plain.ids).all(1).mean()),
+        ios_equal=bool(np.array_equal(res.ios, plain.ios)),
+        hops_equal=bool(np.array_equal(res.hops, plain.hops)),
+        dists_max_abs_diff=float(np.abs(res.dists - plain.dists)[
+            np.isfinite(res.dists)].max()),
+        launches=launches,
+    )
+    if device == "cuda":
+        prof = _profile_search(index, q, params=p)
+        if prof["device_busy_ms"] is not None:
+            prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / (
+                wall * 1e3)
+        row["profile"] = prof
+    if not (np.isfinite(res.dists[:, 0]).all()
+            and res.ids.shape == (len(q), p.k)):
+        raise AssertionError("malformed results")
+    if row["ids_agree_share"] < 0.99:
+        raise AssertionError(f"kernel and plain ids agree for only "
+                             f"{row['ids_agree_share']:.4f} of queries")
+    if not (row["ios_equal"] and row["hops_equal"]):
+        raise AssertionError("kernel and plain ios or hops differ")
+    if device == "cuda" and not (launches.get("pq_adc", 0) > 0
+                                 and launches.get("page_gather_l2", 0) > 0):
+        raise AssertionError(f"pq_adc and page_gather_l2 not both launched: "
+                             f"{launches}")
+    return row, res
+
+
+def run_baselines(ctx: dict, pageann: dict, cfg, *, device: str,
+                  smoke: Smoke | None = None, label: str = "baselines") -> dict:
+    """The paper's baselines over the e2e data: ``DiskANNIndex.build`` (a
+    Vamana graph and PQ codebooks of its own, id-order pages), then
+    ``StarlingIndex.from_data`` on the same graph and codebooks with
+    ``group_pages``' layout. Both search the e2e queries at each of
+    BASELINE_POINTS through the kernels (``pq_adc`` for the entry and
+    neighbour estimates, ``page_gather_l2`` for the exact rerank, launches
+    counted from 0 before each search) and through the plain versions
+    (``_baseline_point``); one graph gives both the same ids, Starling
+    reads fewer pages, recall@10 >= BASELINE_MIN_RECALL at
+    BASELINE_RECALL_POINT; each saved and reloaded through ``load_index``
+    equal exactly. ``pageann``: the e2e HYBRID run's numbers, printed beside
+    the baselines'. Returns the numbers and, under ``"index"``, the DiskANN
+    index (the serve phase serves it)."""
+    import numpy as np
+
+    from repro_torch.core import (DiskANNIndex, SearchParams, StarlingIndex,
+                                  load_index)
+
+    x, q, truth = ctx["x"], ctx["q"], ctx["truth"]
+    t0 = time.perf_counter()
+    disk = DiskANNIndex.build(x, cfg, device=device)
+    build_s = time.perf_counter() - t0
+    nbrs = disk.data.nbrs.cpu().numpy()
+    t0 = time.perf_counter()
+    star = StarlingIndex.from_data(
+        x, nbrs, disk.data.codebooks.cpu().numpy(),
+        page_of=StarlingIndex._layout(x, nbrs, cfg), device=device)
+    layout_s = time.perf_counter() - t0
+
+    out = dict(n=len(x), dim=x.shape[1], queries=len(q), build_s=build_s,
+               starling_layout_s=layout_s, pq_subspaces=cfg.pq_subspaces,
+               pageann_hybrid=dict(
+                   recall_at_10=pageann["recall_at_10"],
+                   mean_ios=pageann["mean_ios"],
+                   mean_hops=pageann["mean_hops"], qps=pageann["qps"]))
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    directory = tempfile.mkdtemp(dir=SCRATCH)
+    try:
+        for name, index in (("diskann", disk), ("starling", star)):
+            out[name] = dict(pages=index.stats.pages)
+            for point, kw in BASELINE_POINTS.items():
+                p = SearchParams(**kw)
+                try:
+                    row, res = _baseline_point(index, q, truth, p,
+                                               device=device)
+                except AssertionError as e:
+                    raise AssertionError(f"{label}: {name} {point}: {e}")
+                out[name][point] = row
+                if point == "default":
+                    sub = os.path.join(directory, name)
+                    index.save(sub)
+                    _search_equal(load_index(sub, device=device).search(q),
+                                  res, f"{label}: {name} reloaded")
+                    out[name]["reload_equal"] = True
+                out[name][point]["_ids"] = res.ids
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    for point in BASELINE_POINTS:
+        dk, st = out["diskann"][point], out["starling"][point]
+        if not np.array_equal(dk.pop("_ids"), st.pop("_ids")):
+            raise AssertionError(f"{label}: {point}: one graph, two traversals")
+        if not st["mean_ios"] < dk["mean_ios"]:
+            raise AssertionError(f"{label}: {point}: Starling reads no fewer "
+                                 "pages than DiskANN")
+    for name in ("diskann", "starling"):
+        got = out[name][BASELINE_RECALL_POINT]["recall_at_10"]
+        if got < BASELINE_MIN_RECALL:
+            raise AssertionError(f"{label}: {name} recall@10 {got:.4f} < "
+                                 f"{BASELINE_MIN_RECALL} at "
+                                 f"{BASELINE_RECALL_POINT}")
+    if smoke is not None:
+        # the kernels at the baseline path's shapes: the rerank's (Q, b)
+        # node ids over the vectors as (N, 1, d) pages, and the neighbour
+        # estimates' (Q, b R) code rows of the DiskANN table
+        import torch
+
+        rng = np.random.default_rng(smoke.seed + 19)
+        b, r = SearchParams().io_batch, disk.data.nbrs.shape[1]
+        ids = torch.as_tensor(rng.integers(0, len(x), (len(q), b)).astype(
+            np.int32)).to(device)
+        qt = torch.as_tensor(q).to(device)
+        smoke.rows["page_gather_l2"] = _page_gather_case(
+            smoke, disk.data.x.view(len(x), 1, -1), ids, qt)
+        nids = torch.as_tensor(rng.integers(0, len(x), (len(q), b * r))).to(device)
+        from repro_torch.core import pq as pq_mod
+
+        lut = pq_mod.pq_lut(qt, disk.data.codebooks).contiguous()
+        for row in (smoke.rows["page_gather_l2"],
+                    _pq_adc_gather_case(smoke, disk.data.codes, nids, lut, 50)):
+            emit("kernels", path=label, **row)
+    emit(label, **out)
+    out["index"] = disk
+    return out
+
+
+SERVE_BATCH = 64         # the engine's batch in the serve phase
+SERVE_REQUESTS = 1000    # requests submitted by SERVE_THREADS threads
+SERVE_THREADS = 4
+SERVE_INSERTS, SERVE_DELETES = 200, 100
+SERVE_HTTP = 20
+# the timed pass: the README's serving timeout, and requests enough that
+# every collection's group leaves a ragged tail only the timer can send
+SERVE_TIMEOUT_MS = 2.0
+SERVE_TIMED_REQUESTS = 300
+
+
+def _serve_requests(svc, names, q, n_req: int, *, flush: bool,
+                    label: str) -> tuple[dict, float]:
+    """SERVE_THREADS submitters, request i to collection ``names[i % 3]``
+    with query ``i % len(q)``; a full group dispatches in the thread that
+    filled it. With ``flush``, one flush sends the ragged tails once every
+    request is in; without it only the engine's timer can. Returns
+    ({request: RequestResult}, wall seconds)."""
+    import threading
+
+    futs: dict = {}
+    errors: list = []
+
+    def submitter(t):
+        try:
+            for i in range(t, n_req, SERVE_THREADS):
+                futs[i] = svc.submit(names[i % 3], q[i % len(q)])
+        except Exception as e:             # reported below, not lost
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if flush:
+        svc.flush()
+    rows = {i: f.result(timeout=300) for i, f in futs.items()}
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads) or len(rows) != n_req:
+        raise AssertionError(f"{label}: {len(rows)} of {n_req} requests "
+                             f"completed; errors {errors[:3]}")
+    return rows, wall
+
+
+def _rows_equal(rows: dict, want: dict, names, n_q: int, label: str) -> float:
+    """Each request's result against its collection's direct search of the
+    same query: ids, ios, hops and cache hits exactly, dists within RTOL /
+    ATOL. Returns the largest dists difference."""
+    import numpy as np
+
+    max_diff = 0.0
+    for i, rr in rows.items():
+        w, j = want[names[i % 3]], i % n_q
+        for field in ("ids", "ios", "hops", "cache_hits"):
+            if not np.array_equal(getattr(rr.result, field),
+                                  getattr(w, field)[j]):
+                raise AssertionError(f"{label}: request {i} ({names[i % 3]}) "
+                                     f"{field} differ from the direct search")
+        if not np.allclose(rr.result.dists, w.dists[j], rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{label}: request {i} dists differ")
+        max_diff = max(max_diff, float(np.abs(rr.result.dists
+                                              - w.dists[j]).max()))
+    return max_diff
+
+
+def _dispatch_overlap(spans) -> tuple[float, int]:
+    """Mean length (ms) of the ``device_dispatch`` spans and the most of
+    them that ran at once."""
+    disp = [sp for sp in spans if sp.name == "device_dispatch"]
+    events = sorted([(sp.ts, 1) for sp in disp]
+                    + [(sp.ts + sp.dur, -1) for sp in disp])
+    live = most = 0
+    for _, step in events:
+        live += step
+        most = max(most, live)
+    return 1e3 * sum(sp.dur for sp in disp) / max(len(disp), 1), most
+
+
+def run_serve(ctx: dict, disk, *, device: str, seed: int,
+              label: str = "serve") -> dict:
+    """The serving layer over three collections: the HYBRID e2e index
+    (saved, then attached from disk), the DiskANN index, and a
+    ``MutableIndex`` over the HYBRID index, behind one ``VectorService``
+    (``BatchingEngine`` at batch 64, no timeout). SERVE_THREADS threads
+    submit SERVE_REQUESTS requests, routed round-robin, then one flush
+    sends the ragged tails: each result must equal the collection's direct
+    search of that query (ids, ios, hops exactly, dists
+    within RTOL / ATOL). Then: a second same-geometry collection adds no
+    compile-cache miss; SERVE_INSERTS inserts and SERVE_DELETES deletes
+    through the engine, after which no deleted id comes back and the live
+    inserts find themselves; ``save_database`` / ``load_database`` give
+    equal results; ``HttpFrontend`` on 127.0.0.1 answers SERVE_HTTP
+    ``/search`` requests as the direct search does and one ``/metrics``
+    scrape reconciles with ``metrics()``; a traced pass has every engine
+    phase. A timed pass sends SERVE_TIMED_REQUESTS more through a second
+    service over the same indexes with a SERVE_TIMEOUT_MS timeout and no
+    flush (the tails go out on the timer), held to the direct search too.
+    Prints the engine's QPS and p50 / p99 request latency, in both passes,
+    beside the QPS of the same requests searched directly, in one call a
+    collection and in the engine's batches; for the timed pass also its
+    batches, their mean occupancy, the mean dispatch and the most
+    dispatches that ran at once."""
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch.core import MutableIndex
+    from repro_torch.obs import (Tracer, parse_prometheus_text, sample_value,
+                                 serve_registry)
+    from repro_torch.serve import HttpFrontend, VectorService
+
+    index, x, q = ctx["index"], ctx["x"], ctx["q"]
+    names = ("hybrid", "diskann", "mutable")
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    directory = tempfile.mkdtemp(dir=SCRATCH)
+    tracer = Tracer(enabled=False, capacity=200_000)
+    # no timeout: a group dispatches when full or on a flush. Each search is
+    # host-bound (a 64-query dispatch costs about what a 1,000-query one
+    # does), so the timed pass below, whose timer sends part-filled groups,
+    # is measured on its own
+    svc = VectorService(device=device, batch_size=SERVE_BATCH,
+                        timeout_ms=None, tracer=tracer)
+    try:
+        art = os.path.join(directory, "hybrid")
+        index.save(art)
+        svc.attach("hybrid", art, k=10)
+        svc.create_collection("diskann", disk, k=10)
+        svc.create_collection("mutable", MutableIndex(index, auto_compact=False),
+                              k=10)
+        want = {n: svc.index_of(n).search(q, k=10) for n in names}
+        # the same requests as direct searches: one call a collection, and
+        # in the engine's batches of SERVE_BATCH
+        routed = {n: q[[i % len(q) for i in range(c, SERVE_REQUESTS, 3)]]
+                  for c, n in enumerate(names)}
+        direct_wall = sum(_median_wall(
+            lambda n=n: svc.index_of(n).search(routed[n], k=10), device)
+            for n in names)
+        batched_wall = sum(_median_wall(
+            lambda n=n: [svc.index_of(n).search(routed[n][i:i + SERVE_BATCH],
+                                                k=10)
+                         for i in range(0, len(routed[n]), SERVE_BATCH)],
+            device) for n in names)
+
+        rows, wall = _serve_requests(svc, names, q, SERVE_REQUESTS,
+                                     flush=True, label=label)
+        n_req = SERVE_REQUESTS
+        m_run = svc.metrics()
+        max_diff = _rows_equal(rows, want, names, len(q), label)
+        if m_run.compile_misses != 3 or m_run.compiled_executables != 3:
+            raise AssertionError(f"{label}: {m_run.compile_misses} compile "
+                                 "misses for three collections")
+
+        # a second collection of the HYBRID geometry compiles nothing new
+        svc.attach("hybrid2", art, k=10)
+        got2 = svc.search("hybrid2", q[:SERVE_BATCH])
+        m_geo = svc.metrics()
+        if m_geo.compile_misses != m_run.compile_misses \
+                or m_geo.compile_hits <= m_run.compile_hits:
+            raise AssertionError(f"{label}: a same-geometry collection added "
+                                 "a compile miss")
+        if not np.array_equal(np.stack([r.result.ids for r in got2]),
+                              want["hybrid"].ids[:SERVE_BATCH]):
+            raise AssertionError(f"{label}: hybrid2 differs from hybrid")
+
+        # the timer's dispatch path: a second service over the same indexes
+        # with the README's timeout and no flush, so each collection's
+        # ragged tail goes out on the timer alone
+        timed_tracer = Tracer(enabled=True, capacity=200_000)
+        with VectorService(device=device, batch_size=SERVE_BATCH,
+                           timeout_ms=SERVE_TIMEOUT_MS,
+                           tracer=timed_tracer) as svc_t:
+            for n in names:
+                svc_t.create_collection(n, svc.index_of(n), k=10)
+            rows_t, wall_t = _serve_requests(
+                svc_t, names, q, SERVE_TIMED_REQUESTS, flush=False,
+                label=f"{label} (timed)")
+            m_timed = svc_t.metrics()
+        max_diff = max(max_diff, _rows_equal(rows_t, want, names, len(q),
+                                             f"{label} (timed)"))
+        timed_dispatch_ms, timed_overlap = _dispatch_overlap(
+            timed_tracer.spans())
+
+        # writes through the engine
+        rng = np.random.default_rng(seed + 23)
+        new = (x[rng.integers(0, len(x), SERVE_INSERTS)]
+               + 0.05 * rng.standard_normal((SERVE_INSERTS, x.shape[1]))
+               ).astype(np.float32)
+        t0 = time.perf_counter()
+        new_ids = svc.insert("mutable", new)
+        dead = np.concatenate([new_ids[:SERVE_DELETES // 2],
+                               rng.choice(len(x), SERVE_DELETES // 2,
+                                          replace=False)])
+        removed = svc.delete("mutable", dead)
+        write_s = time.perf_counter() - t0
+        if removed != SERVE_DELETES:
+            raise AssertionError(f"{label}: {removed} of {SERVE_DELETES} "
+                                 "deletes were live")
+        probe = np.concatenate([q, new])
+        after = np.stack([r.result.ids
+                          for r in svc.search("mutable", probe)])
+        if np.isin(after, dead).any():
+            raise AssertionError(f"{label}: a deleted id came back")
+        live_new = new_ids[SERVE_DELETES // 2:]
+        found = float((after[len(q) + SERVE_DELETES // 2:, 0] == live_new).mean())
+        if found < 0.99:
+            raise AssertionError(f"{label}: only {found:.3f} of the live "
+                                 "inserts find themselves first")
+
+        # the whole database through save_database / load_database
+        db = os.path.join(directory, "db")
+        t0 = time.perf_counter()
+        svc.save(db)
+        with VectorService.load(db, device=device,
+                                batch_size=SERVE_BATCH) as svc2:
+            reload_s = time.perf_counter() - t0
+            if svc2.list_collections() != svc.list_collections():
+                raise AssertionError(f"{label}: collections differ on reload")
+            for n in svc.list_collections():
+                _search_equal(svc2.index_of(n).search(probe, k=10),
+                             svc.index_of(n).search(probe, k=10),
+                             f"{label}: database {n}")
+
+        # the HTTP frontend on an ephemeral port
+        with HttpFrontend(svc, host="127.0.0.1", port=0,
+                          registry=serve_registry(svc)) as fe:
+            for i in range(SERVE_HTTP):
+                name = names[i % 3]
+                body = json.dumps({"collection": name,
+                                   "query": q[i].tolist()}).encode()
+                req = urllib.request.Request(
+                    fe.url + "/search", body,
+                    {"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    doc = json.loads(r.read())
+                direct = svc.index_of(name).search(q[i:i + 1], k=10).ids[0]
+                if doc["results"]["ids"] != direct.tolist():
+                    raise AssertionError(f"{label}: HTTP search {i} differs")
+            with urllib.request.urlopen(fe.url + "/metrics", timeout=60) as r:
+                parsed = parse_prometheus_text(r.read().decode())
+            m_http = svc.metrics()
+            for series, field in (("requests_total", "requests"),
+                                  ("batches_total", "batches"),
+                                  ("compile_misses_total", "compile_misses"),
+                                  ("inserts_total", "inserts"),
+                                  ("deletes_total", "deletes")):
+                if sample_value(parsed, f"pageann_{series}") != getattr(
+                        m_http, field):
+                    raise AssertionError(f"{label}: /metrics {series} does not "
+                                         "reconcile with metrics()")
+            http_ok = sample_value(parsed, "pageann_http_requests_total",
+                                   route="/search", code="200")
+            if http_ok != SERVE_HTTP:
+                raise AssertionError(f"{label}: {http_ok} HTTP 200s counted")
+
+        # a traced pass: a new k is a new signature, so it compiles
+        tracer.enabled = True
+        svc.search("hybrid", q[:SERVE_BATCH], k=5)
+        tracer.enabled = False
+        phases = {"submit", "queue_wait", "batch_assemble", "compile",
+                  "device_dispatch", "demux", "request"}
+        traced = {sp.name for sp in tracer.spans()}
+        if not phases <= traced:
+            raise AssertionError(f"{label}: trace lacks {phases - traced}")
+    finally:
+        svc.close()
+        shutil.rmtree(directory, ignore_errors=True)
+    out = dict(
+        collections=list(names), batch=SERVE_BATCH, requests=n_req,
+        threads=SERVE_THREADS, wall_s=wall, qps_wall=n_req / wall,
+        engine_qps=m_run.qps, latency_ms_p50=m_run.latency_ms_p50,
+        latency_ms_p99=m_run.latency_ms_p99,
+        latency_ms_mean=m_run.latency_ms_mean, batches=m_run.batches,
+        mean_batch_occupancy=m_run.mean_batch_occupancy,
+        padded_fraction=m_run.padded_fraction, mean_ios=m_run.mean_ios,
+        mean_hops=m_run.mean_hops, compile_misses=m_run.compile_misses,
+        compile_hits_after_second_geometry=m_geo.compile_hits,
+        direct_qps=n_req / direct_wall,
+        direct_batched_qps=n_req / batched_wall,
+        timed=dict(
+            timeout_ms=SERVE_TIMEOUT_MS, requests=SERVE_TIMED_REQUESTS,
+            wall_s=wall_t, qps_wall=SERVE_TIMED_REQUESTS / wall_t,
+            engine_qps=m_timed.qps, latency_ms_p50=m_timed.latency_ms_p50,
+            latency_ms_p99=m_timed.latency_ms_p99, batches=m_timed.batches,
+            mean_batch_occupancy=m_timed.mean_batch_occupancy,
+            mean_dispatch_ms=timed_dispatch_ms,
+            most_dispatches_at_once=timed_overlap),
+        dists_max_abs_diff=max_diff, inserts=SERVE_INSERTS,
+        deletes=SERVE_DELETES, write_s=write_s, inserts_found_first=found,
+        database_reload_s=reload_s, http_requests=SERVE_HTTP,
+        trace_phases=sorted(traced & phases), trace_spans=len(tracer),
+    )
+    emit(label, **out)
+    return out
+
+
 def filter_exprs(scores, *, full: bool) -> dict:
     """The predicates of the filter phase: numeric bounds at each
     selectivity (quantiles of the score column) and a tag-and-numeric
@@ -1760,7 +2244,8 @@ def main(argv=None) -> int:
     # 10,000: the Vamana build's host-side prune takes 14-19 ms a vector on
     # the card's host, so 20,000 would not fit in 5 minutes
     ap.add_argument("--n", type=int, default=10_000,
-                    help="vectors in each end-to-end build (HYBRID, MEM_ALL)")
+                    help="vectors in the HYBRID end-to-end build and the "
+                         "baselines' build")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1796,11 +2281,12 @@ def main(argv=None) -> int:
     # searches (page_scan, pq_adc, hamming; members-only in MEM_ALL), the
     # streamed searches (page_scan_recs*), the filtered ones (*_masked);
     # each adaptive setting's search is counted on its own as well
-    launches, adaptive_launches = {}, {}
+    launches, adaptive_launches, baseline_launches = {}, {}, {}
     for cfg, label in ((cfg_h, "e2e"), (cfg_m, "e2e_memall")):
         hybrid = cfg is cfg_h
-        run, ctx = run_e2e(cfg, args.n, N_QUERIES, device="cuda",
-                           seed=args.seed, label=label)
+        run, ctx = run_e2e(cfg, args.n if hybrid else N_MEMALL,
+                           N_QUERIES, device="cuda", seed=args.seed,
+                           label=label)
         if hybrid and run["recall_at_10"] < MIN_RECALL:
             raise AssertionError(
                 f"HYBRID recall@10 {run['recall_at_10']} < {MIN_RECALL}")
@@ -1830,12 +2316,16 @@ def main(argv=None) -> int:
         if hybrid:
             mut = run_mutable(ctx, device="cuda", seed=args.seed)
             launches["l2_distance"] = mut["launches"]["l2_distance"]
+            bl = run_baselines(ctx, run, cfg_h, device="cuda", smoke=smoke)
+            baseline_launches = bl["diskann"]["default"]["launches"]
+            launches["page_gather_l2"] = baseline_launches["page_gather_l2"]
+            run_serve(ctx, bl.pop("index"), device="cuda", seed=args.seed)
+            del bl
         del ctx
         torch.cuda.empty_cache()
     run_compaction(cfg_h, device="cuda", seed=args.seed)
-    # page_gather_l2 and the distance-only hamming have no caller but their
-    # entry points: each path is the one counted call of the kernels phase
-    launches["page_gather_l2"] = smoke.rows["page_gather_l2"]["launches"]
+    # the distance-only hamming has no caller but its entry point: its path
+    # is the one counted call of the kernels phase
     launches["hamming_distances"] = smoke.rows["hamming_distances"]["launches"]
     never = [name for name in KERNELS if launches.get(name, 0) <= 0]
     if never:
@@ -1848,6 +2338,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], launches_path=PATHS[name],
             launches_adaptive=adaptive_launches.get(name, {}),
+            launches_baselines=baseline_launches.get(name, 0),
             max_abs_err=smoke.err[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -8,14 +8,21 @@ from repro_torch.core.config import (
     PageANNConfig,
     SearchParams,
 )
+from repro_torch.core.baselines import (
+    DiskANNIndex,
+    StarlingIndex,
+    load_baseline,
+)
 from repro_torch.core.delta import DeltaTier, MutableIndex
 from repro_torch.core.filter import FilterExpr, MetadataSchema, Num, Tag
 from repro_torch.core.index import BuildStats, PageANNIndex, recall_at_k
 from repro_torch.core.persist import (
     IndexFormatError,
     index_from_arrays,
+    load_database,
     load_index,
     load_pageann,
+    save_database,
 )
 from repro_torch.core.protocol import MutableVectorIndex, VectorIndex
 from repro_torch.core.search import HopProfile, profile_search
@@ -26,6 +33,7 @@ __all__ = [
     "BuildStats",
     "DeltaParams",
     "DeltaTier",
+    "DiskANNIndex",
     "FilterExpr",
     "FilterParams",
     "HopProfile",
@@ -40,11 +48,15 @@ __all__ = [
     "PageANNIndex",
     "PageFetcher",
     "SearchParams",
+    "StarlingIndex",
     "Tag",
     "VectorIndex",
     "index_from_arrays",
+    "load_baseline",
+    "load_database",
     "load_index",
     "load_pageann",
     "profile_search",
     "recall_at_k",
+    "save_database",
 ]

@@ -1,5 +1,4 @@
-"""On-disk index persistence: port of ``repro.core.persist`` for
-``kind="pageann"``.
+"""On-disk index persistence: port of ``repro.core.persist``.
 
 The artifact is the reference's, byte for byte in layout:
 
@@ -17,8 +16,11 @@ A mutable index (``core.delta.MutableIndex``) persists as
 ``kind="mutable"``: the frozen base as a nested artifact under ``base/``, a
 ``delta.npz`` sidecar (inserted vectors, liveness, tombstones, external id
 map, metadata codes) and a manifest ``generation`` counter; compaction
-replaces the whole directory atomically (``swap_mutable``). ``load_index``
-opens either kind.
+replaces the whole directory atomically (``swap_mutable``). The DiskANN
+and Starling baselines (``core.baselines``) persist as ``kind="diskann"`` /
+``"starling"``: a manifest and an ``arrays.npz``. ``load_index`` opens any
+of these kinds; a database (``save_database``) is a ``db.json`` over one
+such artifact per named collection.
 
 It is framework-neutral, so ``load_pageann`` / ``load_mutable`` are how an
 index built and saved by the JAX package reaches the port (and the reverse
@@ -64,6 +66,35 @@ META_NPZ = "meta.npz"
 DELTA_NPZ = "delta.npz"
 BASE_SUBDIR = "base"
 
+# ---- database layout (a directory of named collections, see save_database)
+DB_FORMAT = "repro.vector_database"
+DB_VERSION = 1
+DB_MANIFEST = "db.json"
+DB_COLLECTIONS_SUBDIR = "collections"
+
+# collection names double as artifact subdirectory names, so they are
+# restricted to a filesystem- and manifest-safe alphabet up front: a
+# rejected create_collection beats a corrupted db.json or a path traversal
+_NAME_ALLOWED = (
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._-"
+)
+
+
+def check_collection_name(name: str) -> str:
+    """Validate a collection name (also used as its on-disk subdirectory):
+    1-64 chars of [A-Za-z0-9._-], not starting with a dot or dash."""
+    if (
+        not isinstance(name, str)
+        or not 0 < len(name) <= 64
+        or name[0] in ".-"
+        or any(c not in _NAME_ALLOWED for c in name)
+    ):
+        raise ValueError(
+            f"invalid collection name {name!r}: need 1-64 chars of "
+            "[A-Za-z0-9._-] not starting with '.' or '-'"
+        )
+    return name
+
 
 class IndexFormatError(ValueError):
     """A saved index artifact this library cannot read: corrupted or
@@ -77,29 +108,39 @@ def write_manifest(directory: str, doc: dict) -> None:
         json.dump(doc, f, indent=2, sort_keys=True)
 
 
-def read_manifest(directory: str) -> dict:
-    path = os.path.join(directory, MANIFEST)
+def _read_versioned(path: str, fmt: str, version: int, *, noun: str,
+                    author: str, counter: str) -> dict:
+    """Load a versioned JSON manifest: a missing file raises
+    ``FileNotFoundError``; garbled JSON, another ``format`` or a version
+    other than ``version`` raise :class:`IndexFormatError` naming what was
+    found against what this build supports."""
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"no index manifest at {path}")
+        raise FileNotFoundError(f"no {noun} at {path}")
     try:
         with open(path) as f:
             doc = json.load(f)
     except json.JSONDecodeError as e:
-        raise IndexFormatError(f"{path}: manifest is not valid JSON: {e}")
-    if doc.get("format") != FORMAT:
-        raise IndexFormatError(f"{path}: not a {FORMAT} manifest")
+        raise IndexFormatError(f"{path}: {noun} is not valid JSON: {e}")
+    if doc.get("format") != fmt:
+        raise IndexFormatError(f"{path}: not a {fmt} manifest")
     found = doc.get("version")
-    if found != VERSION:
-        ahead = isinstance(found, int) and found > VERSION
+    if found != version:
+        ahead = isinstance(found, int) and found > version
         hint = (
-            "; artifact was written by a newer library — upgrade to read it"
+            f"; {author} was written by a newer library — upgrade to read it"
             if ahead else ""
         )
         raise IndexFormatError(
-            f"{path}: found format version {found}, this build supports "
-            f"version {VERSION}{hint}"
+            f"{path}: found {counter} {found}, this build supports "
+            f"version {version}{hint}"
         )
     return doc
+
+
+def read_manifest(directory: str) -> dict:
+    return _read_versioned(os.path.join(directory, MANIFEST), FORMAT, VERSION,
+                           noun="index manifest", author="artifact",
+                           counter="format version")
 
 
 def _check_pages_bin(directory: str, doc: dict) -> str:
@@ -616,14 +657,97 @@ def load_mutable(directory: str, *, device: str | torch.device = "cuda",
     return index
 
 
+# ----------------------------------------------------------------- database
+def is_database_dir(directory: str) -> bool:
+    return os.path.isfile(os.path.join(directory, DB_MANIFEST))
+
+
+def read_db_manifest(directory: str) -> dict:
+    """Read and validate ``db.json``, versioned like index manifests."""
+    path = os.path.join(directory, DB_MANIFEST)
+    doc = _read_versioned(path, DB_FORMAT, DB_VERSION,
+                          noun="database manifest", author="database",
+                          counter="database version")
+    if not isinstance(doc.get("collections"), dict):
+        raise IndexFormatError(f"{path}: manifest has no collections table")
+    return doc
+
+
+def _collection_subdir(name: str) -> str:
+    # stored with a literal "/" so db.json is platform-independent
+    return f"{DB_COLLECTIONS_SUBDIR}/{name}"
+
+
+def save_database(collections, directory: str) -> None:
+    """Persist a whole multi-collection service under one directory:
+
+      <dir>/db.json                versioned JSON: collection name -> subdir
+      <dir>/collections/<name>/    one full per-collection index artifact
+                                   (whatever kind each index persists as)
+
+    ``collections`` maps name -> any ``VectorIndex`` with ``save``. The
+    manifest is written last (tmp + rename), so a crash mid-save of a fresh
+    directory leaves one that ``load_database`` refuses (no db.json), not a
+    silently partial database. Re-saving over an existing database
+    overwrites the per-collection artifacts in place under the old
+    manifest; to replace a live database atomically, save to a fresh
+    sibling and rename. The format is the reference's: either package
+    loads what the other saved.
+    """
+    for name in collections:
+        check_collection_name(name)
+    os.makedirs(directory, exist_ok=True)
+    table = {}
+    for name, index in sorted(collections.items()):
+        index.save(os.path.join(directory, DB_COLLECTIONS_SUBDIR, name))
+        table[name] = _collection_subdir(name)
+    doc = dict(format=DB_FORMAT, version=DB_VERSION, collections=table)
+    path = os.path.join(directory, DB_MANIFEST)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+    os.replace(tmp, path)
+
+
+def load_database(directory: str, *, device: str | torch.device = "cuda",
+                  memory_budget=None) -> dict:
+    """Reload every collection of a saved database onto ``device``: name ->
+    loaded ``VectorIndex`` (each through :func:`load_index` on its manifest
+    kind); searches on them equal the saved ones'. ``memory_budget``
+    applies to each collection on its own.
+
+    Artifact paths are derived from the VALIDATED collection names, never
+    from manifest values: a tampered ``db.json`` that maps a name outside
+    ``collections/`` is rejected, not followed."""
+    doc = read_db_manifest(directory)
+    out = {}
+    for name, sub in sorted(doc["collections"].items()):
+        check_collection_name(name)
+        want = _collection_subdir(name)
+        if sub != want:
+            raise IndexFormatError(
+                f"{directory}: collection {name!r} maps to unexpected "
+                f"path {sub!r} (expected {want!r})"
+            )
+        out[name] = load_index(
+            os.path.join(directory, DB_COLLECTIONS_SUBDIR, name),
+            device=device, memory_budget=memory_budget,
+        )
+    return out
+
+
 # ------------------------------------------------------------------ any kind
 def load_index(directory: str, *, device: str | torch.device = "cuda",
                memory_budget=None):
     """Load whichever index kind saved ``directory`` onto ``device``:
     ``"pageann"`` as a :class:`PageANNIndex`, ``"mutable"`` as a
-    :class:`MutableIndex`. ``memory_budget`` caps the device-resident pages
-    of the page tier (a mutable index's base tier). The reference's other
-    kinds are not ported yet and raise ``NotImplementedError``."""
+    :class:`MutableIndex`, ``"diskann"`` / ``"starling"`` as a baseline
+    index. ``memory_budget`` caps the device-resident pages of the page
+    tier (a mutable index's base tier); the baselines have none and reject
+    a budget rather than ignore it. ``"sharded"`` is not ported yet and
+    raises ``NotImplementedError``."""
+    from repro_torch.core import baselines as bl
+
     kind = read_manifest(directory)["kind"]
     if kind == "pageann":
         return load_pageann(directory, device=device,
@@ -631,11 +755,13 @@ def load_index(directory: str, *, device: str | torch.device = "cuda",
     if kind == "mutable":
         return load_mutable(directory, device=device,
                             memory_budget=memory_budget)
-    if kind in ("diskann", "starling"):
-        raise NotImplementedError(
-            f"{directory}: kind={kind!r} baseline indexes are not ported "
-            "yet: ROADMAP queue A, item 9"
-        )
+    if kind in bl.BASELINE_KINDS:
+        if memory_budget is not None:
+            raise ValueError(
+                f"{directory}: kind={kind!r} baseline indexes are fully "
+                "in-memory; memory_budget is not supported"
+            )
+        return bl.load_baseline(directory, device=device)
     if kind == "sharded":
         raise NotImplementedError(
             f"{directory}: kind='sharded' indexes are not ported yet: "

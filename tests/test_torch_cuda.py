@@ -707,3 +707,78 @@ def test_profile_equals_search_on_the_card(card_index, patience):
     np.testing.assert_array_equal(last, got.dists[:, -1])
     if patience is None:
         assert not trail.stall.any()
+
+
+@pytest.fixture(scope="module")
+def card_baselines():
+    """DiskANN and Starling over one Vamana graph built on the card, and
+    their queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.core import DiskANNIndex, PageANNConfig, StarlingIndex
+    from repro_torch.data.pipeline import clustered_vectors, query_vectors
+
+    x = clustered_vectors(1500, 32, num_clusters=16, seed=0)
+    cfg = PageANNConfig(dim=32, graph_degree=16, build_beam=32, build_rounds=1,
+                        pq_subspaces=8)
+    disk = DiskANNIndex.build(x, cfg, device="cuda")
+    nbrs = disk.data.nbrs.cpu().numpy()
+    star = StarlingIndex.from_data(
+        x, nbrs, disk.data.codebooks.cpu().numpy(),
+        page_of=StarlingIndex._layout(x, nbrs, cfg), device="cuda")
+    return disk, star, query_vectors(x, 200, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["diskann", "starling"])
+@pytest.mark.parametrize("beam,io_batch,max_hops", [(64, 5, 64), (16, 4, 4)])
+def test_baseline_search_through_the_kernels_matches_plain(
+        card_baselines, tmp_path, kind, beam, io_batch, max_hops):
+    """The baselines' estimates (``pq_adc``) and rerank (``page_gather_l2``
+    at capacity 1) through the kernels against the plain versions on the
+    card: ids equal for >= 99% of queries, ios and hops equal; a save and
+    ``load_index`` on the card give the same results exactly."""
+    from repro_torch.core import SearchParams, load_index
+
+    disk, star, q = card_baselines
+    index = disk if kind == "diskann" else star
+    p = SearchParams(k=10, beam_width=beam, io_batch=io_batch,
+                     max_hops=max_hops)
+    ops.reset_launch_counts()
+    got = index.search(q, params=p)
+    counts = ops.launch_counts()
+    assert counts["pq_adc"] > 0 and counts["page_gather_l2"] > 0
+    plain = index.search(q, params=p, impl="plain")
+    assert (got.ids == plain.ids).all(1).mean() >= 0.99
+    np.testing.assert_array_equal(got.ios, plain.ios)
+    np.testing.assert_array_equal(got.hops, plain.hops)
+    np.testing.assert_allclose(got.dists, plain.dists, rtol=1e-5, atol=1e-4)
+    index.save(str(tmp_path / kind))
+    again = load_index(str(tmp_path / kind), device="cuda").search(q, params=p)
+    for field in got._fields:
+        np.testing.assert_array_equal(getattr(again, field), getattr(got, field))
+
+
+@pytest.mark.cuda
+def test_service_serves_baseline_and_pageann_collections_on_the_card(
+        card_baselines, card_index):
+    """A ``VectorService`` on the card over a DiskANN and a PageANN
+    collection: every request's result equals its collection's direct
+    search; the baseline dispatches launch ``page_gather_l2``."""
+    from repro_torch.serve import VectorService
+
+    disk, _, q = card_baselines
+    index, qp = card_index
+    with VectorService(device="cuda", batch_size=16) as svc:
+        svc.create_collection("disk", disk, k=10)
+        svc.create_collection("page", index, k=10)
+        ops.reset_launch_counts()
+        rows_d = svc.search("disk", q[:40])
+        assert ops.launch_counts()["page_gather_l2"] > 0
+        rows_p = svc.search("page", qp[:40])
+    for rows, idx, qq in ((rows_d, disk, q[:40]), (rows_p, index, qp[:40])):
+        want = idx.search(qq, k=10)
+        for field in ("ids", "ios", "hops"):
+            np.testing.assert_array_equal(
+                np.stack([getattr(r.result, field) for r in rows]),
+                getattr(want, field))

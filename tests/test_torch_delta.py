@@ -352,19 +352,22 @@ def test_budgeted_load_equals_resident(bases, tmp_path):
 
 
 def test_load_index_kinds(hybrid_base, tmp_path):
-    """``load_index`` opens both ported kinds; the reference's other kinds
-    are refused by name."""
+    """``load_index`` opens the ported kinds; the baseline kinds go to the
+    baseline loader, which refuses a memory budget (they have no page
+    tier), and the one kind not ported yet is refused by name."""
     _, tbase, directory = hybrid_base
     assert isinstance(load_index(directory, device="cpu"), PageANNIndex)
     fake = tmp_path / "baseline"
     shutil.copytree(directory, fake)
-    for kind, item in (("diskann", "item 9"), ("starling", "item 9"),
-                       ("sharded", "item 12")):
+    for kind, err, match in (
+            ("diskann", ValueError, "memory_budget is not supported"),
+            ("starling", ValueError, "memory_budget is not supported"),
+            ("sharded", NotImplementedError, "item 12")):
         doc = json.loads((fake / "manifest.json").read_text())
         doc["kind"] = kind
         (fake / "manifest.json").write_text(json.dumps(doc))
-        with pytest.raises(NotImplementedError, match=item):
-            load_index(str(fake), device="cpu")
+        with pytest.raises(err, match=match):
+            load_index(str(fake), device="cpu", memory_budget=0.5)
     with pytest.raises(ValueError, match="int32"):
         MutableIndex(tbase, base_ids=np.arange(N_BASE) + 2**31)
 

@@ -6,8 +6,11 @@ and the report renderer are copies of pure-Python modules: they are held to
 the reference's behaviour case for case (the engine-free cases of
 ``tests/test_observability.py``), and where both packages render the same
 input, the text must be equal. ``serve_registry`` runs over a stand-in
-source whose ``metrics()`` returns the reference's ``EngineMetrics``: the
-port's serving engine does not exist yet.
+source whose ``metrics()`` returns the reference's ``EngineMetrics``, and
+over the port's ``BatchingEngine`` itself (the engine cases of
+``tests/test_observability.py``): its quantiles against numpy, its
+exposition against its ``metrics()``, and its span phases and stamps
+against the reference engine's under one fake clock.
 
 The profile: the port's ``profile_search`` trail must equal the
 reference's on a JAX-built index (``torch_jax_artifacts``): pages, ios,
@@ -31,6 +34,7 @@ from repro.obs import MetricsRegistry as JRegistry
 from repro.obs import Tracer as JTracer
 from repro.obs import report as jreport
 from repro.obs import serve_registry as jax_serve_registry
+from repro.serve import BatchingEngine as JEngine
 from repro.serve.engine import EngineMetrics
 from repro_torch.core import (
     AdaptiveParams,
@@ -40,7 +44,7 @@ from repro_torch.core import (
     load_pageann,
 )
 from repro_torch.core import lsh as tlsh
-from repro_torch.core.search import PAD
+from repro_torch.core.search import PAD, SearchResult
 from repro_torch.obs import (
     NULL_TRACER,
     MetricsRegistry,
@@ -52,6 +56,7 @@ from repro_torch.obs import (
 )
 from repro_torch.obs import report as report_mod
 from repro_torch.obs.metrics import _ENGINE_FIELDS
+from repro_torch.serve import BatchingEngine
 from torch_jax_artifacts import dataset, metadata_artifact
 
 # six test workers share the host's cores; the port's small searches gain
@@ -443,3 +448,219 @@ def test_obs_package_exports_the_reference_names():
 
     assert tobs.__all__ == jobs.__all__
     assert isinstance(tobs.NULL_TRACER, Tracer) and not tobs.NULL_TRACER.enabled
+
+
+# ------------------------------------------ over the port's serving engine
+class _FakeClock:
+    """Deterministic monotonic clock; tests advance ``.t`` explicitly."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _clocked_backend(clock, latencies_s, hops_list, ios=3):
+    """Per-dispatch backend: advances the fake clock by the next latency
+    (so a request's latency is that delta at batch_size=1) and reports the
+    next scripted hop count."""
+    lat_it = iter(latencies_s)
+    hop_it = iter(hops_list)
+
+    def fn(q, k, params):
+        clock.t += next(lat_it)
+        b = q.shape[0]
+        return SearchResult(
+            ids=np.zeros((b, k), np.int32),
+            dists=np.zeros((b, k), np.float32),
+            ios=np.full((b,), ios, np.int32),
+            hops=np.full((b,), next(hop_it), np.int32),
+            cache_hits=np.zeros((b,), np.int32),
+        )
+
+    return fn
+
+
+def test_latency_and_hops_quantiles_match_numpy_oracle():
+    rng = np.random.default_rng(7)
+    lat_s = rng.uniform(0.001, 0.2, size=100)
+    hops = rng.integers(1, 40, size=100)
+    clock = _FakeClock()
+    eng = BatchingEngine(_clocked_backend(clock, lat_s, hops), dim=4,
+                         batch_size=1, clock=clock)
+    for _ in range(100):
+        eng.submit(np.zeros(4, np.float32)).result(timeout=30)
+    m = eng.metrics()
+    lat_ms = lat_s * 1e3
+    assert m.requests == 100 and m.batches == 100
+    assert m.latency_ms_mean == pytest.approx(lat_ms.mean())
+    assert m.latency_ms_p50 == pytest.approx(np.percentile(lat_ms, 50))
+    assert m.latency_ms_p99 == pytest.approx(np.percentile(lat_ms, 99))
+    assert m.mean_hops == pytest.approx(hops.mean())
+    assert m.p99_hops == pytest.approx(np.percentile(hops, 99))
+    assert m.mean_ios == 3.0 and m.p99_ios == 3.0
+    win = eng.metrics_windows()
+    np.testing.assert_allclose(win["latency_ms"], lat_ms)
+    np.testing.assert_array_equal(win["hops"], hops)
+    eng.close()
+
+
+def test_latency_window_evicts_oldest_at_overflow():
+    window, total = 16, 50
+    lat_s = np.linspace(0.001, 0.05, total)
+    hops = np.arange(1, total + 1)
+    clock = _FakeClock()
+    eng = BatchingEngine(_clocked_backend(clock, lat_s, hops), dim=4,
+                         batch_size=1, clock=clock, latency_window=window)
+    for _ in range(total):
+        eng.submit(np.zeros(4, np.float32)).result(timeout=30)
+    m = eng.metrics()
+    assert m.requests == total
+    tail_ms = lat_s[-window:] * 1e3
+    assert m.latency_ms_mean == pytest.approx(tail_ms.mean())
+    assert m.latency_ms_p50 == pytest.approx(np.percentile(tail_ms, 50))
+    assert m.latency_ms_p99 == pytest.approx(np.percentile(tail_ms, 99))
+    assert m.mean_hops == pytest.approx(hops[-window:].mean())
+    win = eng.metrics_windows()
+    assert len(win["latency_ms"]) == window
+    np.testing.assert_allclose(win["latency_ms"], tail_ms)
+    eng.close()
+
+
+def test_early_exit_accounting_against_resolved_max_hops():
+    hops = [3, 10, 10, 7, 10, 1]
+    clock = _FakeClock()
+    eng = BatchingEngine(batch_size=1, clock=clock)
+    eng.add_collection(
+        "c", _clocked_backend(clock, [0.001] * len(hops), hops), dim=4,
+        default_k=5, resolve_fn=lambda k, p: SearchParams(k=k, max_hops=10))
+    for _ in range(len(hops)):
+        eng.submit(np.zeros(4, np.float32), collection="c").result(timeout=30)
+    assert eng.metrics().early_exits == 3
+    eng.close()
+
+
+def test_serve_registry_reconciles_with_engine_metrics():
+    """The port's engine behind the port's ``serve_registry``: every series
+    agrees with ``metrics()``; and the reference's engine, fed the same
+    scripted backend under the same fake clock, renders the same text."""
+    rng = np.random.default_rng(3)
+    n = 40
+    lat_s = rng.uniform(0.001, 0.05, size=n)
+    hops = rng.integers(1, 30, size=n)
+    texts = []
+    for eng_cls, registry in ((BatchingEngine, serve_registry),
+                              (JEngine, jax_serve_registry)):
+        clock = _FakeClock()
+        eng = eng_cls(_clocked_backend(clock, lat_s, hops), dim=4,
+                      batch_size=1, clock=clock)
+        for _ in range(n):
+            eng.submit(np.zeros(4, np.float32)).result(timeout=30)
+        texts.append(registry(eng).render())
+        if eng_cls is BatchingEngine:
+            m = eng.metrics()
+        eng.close()
+    assert texts[0] == texts[1]
+    parsed = parse_prometheus_text(texts[0])
+    assert sample_value(parsed, "pageann_requests_total") == m.requests == n
+    assert sample_value(parsed, "pageann_batches_total") == m.batches
+    assert sample_value(parsed, "pageann_early_exits_total") == m.early_exits
+    assert sample_value(parsed, "pageann_compile_misses_total") == (
+        m.compile_misses)
+    assert sample_value(parsed, "pageann_latency_ms_p99") == pytest.approx(
+        m.latency_ms_p99)
+    assert sample_value(parsed, "pageann_mean_hops") == pytest.approx(
+        m.mean_hops)
+    assert sample_value(parsed, "pageann_collections") == 1
+    assert sample_value(parsed, "pageann_request_latency_ms_count") == n
+    assert sample_value(parsed, "pageann_request_latency_ms_sum") == (
+        pytest.approx((lat_s * 1e3).sum()))
+    assert sample_value(parsed, "pageann_request_hops_bucket", le="+Inf") == n
+    for field, (suffix, _, _) in _ENGINE_FIELDS.items():
+        assert sample_value(parsed, f"pageann_{suffix}") == pytest.approx(
+            float(getattr(m, field))), field
+
+
+def test_metrics_server_scrapes_a_real_engine():
+    clock = _FakeClock()
+    eng = BatchingEngine(_clocked_backend(clock, [0.002] * 5, [4] * 5),
+                         dim=4, batch_size=1, clock=clock)
+    for _ in range(5):
+        eng.submit(np.zeros(4, np.float32)).result(timeout=30)
+    with MetricsServer(serve_registry(eng), source=eng) as srv:
+        with urllib.request.urlopen(f"{srv.url}/healthz", timeout=10) as r:
+            assert r.status == 200 and r.read() == b"ok\n"
+        with urllib.request.urlopen(f"{srv.url}/metrics", timeout=10) as r:
+            parsed = parse_prometheus_text(r.read().decode())
+        assert sample_value(parsed, "pageann_requests_total") == 5
+        with urllib.request.urlopen(f"{srv.url}/stats", timeout=10) as r:
+            doc = json.loads(r.read().decode())
+        assert doc["metrics"]["requests"] == 5
+    eng.close()
+
+
+def _span_tuples(tracer):
+    return [(s.name, s.cat, s.track, s.ts, s.dur,
+             json.dumps(s.args, sort_keys=True, default=str))
+            for s in tracer.spans()]
+
+
+def test_engine_emits_expected_span_phases():
+    """The engine's phases, tracks and nesting, and the reference engine's
+    exact spans under the same fake clock and backend."""
+    traces = []
+    for eng_cls, tracer_cls in ((BatchingEngine, Tracer), (JEngine, JTracer)):
+        clock = _FakeClock()
+        tr = tracer_cls(clock=clock)
+        eng = eng_cls(_clocked_backend(clock, [0.004] * 4, [5] * 4), dim=4,
+                      batch_size=2, clock=clock, tracer=tr)
+        futs = [eng.submit(np.zeros(4, np.float32)) for _ in range(4)]
+        for f in futs:
+            f.result(timeout=30)
+        eng.close()
+        traces.append(tr)
+    tr = traces[0]
+    assert _span_tuples(tr) == _span_tuples(traces[1])
+    names = {s.name for s in tr.spans()}
+    assert {"submit", "queue_wait", "batch_assemble", "compile",
+            "device_dispatch", "demux", "request"} <= names
+    reqs = [s for s in tr.spans() if s.name == "request"]
+    assert sorted(s.track for s in reqs) == ["req-1", "req-2", "req-3",
+                                             "req-4"]
+    dispatches = [s for s in tr.spans() if s.name == "device_dispatch"]
+    assert [d.args["compiled"] for d in dispatches] == [True, False]
+    assert sum(s.name == "compile" for s in tr.spans()) == 1
+    for s in reqs:
+        assert s.dur * 1e3 == pytest.approx(s.args["latency_ms"])
+
+
+def test_engine_spans_over_a_real_index():
+    """An engine over a port index with the tracer on: every phase is in
+    the trace, each request's span encloses its queue wait and the
+    dispatch that served it, and the first dispatch of a signature carries
+    the compile span."""
+    _, directory = metadata_artifact(MemoryMode.HYBRID.value)
+    index = load_pageann(directory, device="cpu")
+    q = dataset()[1]
+    tr = Tracer()
+    eng = BatchingEngine.from_index(index, k=K, batch_size=4, tracer=tr)
+    rows = eng.search(q)
+    want = index.search(q, k=K)
+    np.testing.assert_array_equal(np.stack([r.result.ids for r in rows]),
+                                  want.ids)
+    eng.search(q[:4])                       # a warm signature: no compile
+    eng.close()
+    spans = tr.spans()
+    assert {"submit", "queue_wait", "batch_assemble", "compile",
+            "device_dispatch", "demux", "request"} <= {s.name for s in spans}
+    dispatches = [s for s in spans if s.name == "device_dispatch"]
+    assert [d.args["compiled"] for d in dispatches] == [True, False, False]
+    assert sum(s.name == "compile" for s in spans) == 1
+    by_batch = {d.args["batch_index"]: d for d in dispatches}
+    for req in (s for s in spans if s.name == "request"):
+        d = by_batch[req.args["batch_index"]]
+        wait = next(s for s in spans
+                    if s.name == "queue_wait" and s.track == req.track)
+        assert req.ts <= wait.ts and wait.ts + wait.dur <= d.ts
+        assert d.ts + d.dur <= req.ts + req.dur + 1e-9

@@ -104,3 +104,31 @@ def delta_base_artifact(mode_value: str):
     directory = f"{tmp.name}/base.{mode_value}"
     index.save(directory)
     return index, directory
+
+
+# ------------------------------------------------------------------ serving
+# the size of tests/test_serve_service.py: two same-geometry HYBRID indexes
+# over two corpora of N_SERVE vectors
+N_SERVE = 600
+
+
+def serve_cfg_kwargs() -> dict:
+    return dict(cfg_kwargs("hybrid"), memory_mode=JMode.HYBRID)
+
+
+@functools.cache
+def serve_artifacts():
+    """(corpora (x_a, x_b), JAX indexes (a, b), their saved directories):
+    the reference's serving fixtures, built once per process."""
+    xs = (clustered_vectors(N_SERVE, D, num_clusters=16, seed=0),
+          clustered_vectors(N_SERVE, D, num_clusters=16, seed=42))
+    tmp = tempfile.TemporaryDirectory(prefix="repro_torch_serve_")
+    _DIRS.append(tmp)
+    indexes, dirs = [], []
+    for name, x in zip("ab", xs):
+        index = JIndex.build(x, JConfig(**serve_cfg_kwargs()))
+        directory = f"{tmp.name}/idx.{name}"
+        index.save(directory)
+        indexes.append(index)
+        dirs.append(directory)
+    return xs, tuple(indexes), tuple(dirs)
