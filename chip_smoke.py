@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 9-11 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 10-13 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -64,6 +64,20 @@ version. Phases, one JSON line each:
             inserts and 100 deletes, ``save_database`` / ``load_database``,
             ``HttpFrontend`` (20 searches, one ``/metrics`` scrape), every
             engine span phase; the engine's QPS and p50 / p99 latency
+  sharded   ``ShardedPageStore.build`` over the HYBRID e2e data, 2 shards
+            (one more Vamana build in all): the host fan-out through the
+            kernels and the plain versions (ids >= 99%, ios and hops
+            exactly) at the default SearchParams and at beam 128,
+            recall@10 >= 0.85 at beam 128, each point's recall beside the
+            unsharded index's and its QPS beside the unsharded QPS; the
+            mesh fan-out on a (2, 1) mesh naming the card twice = the host
+            fan-out (ids, ios, dists), hops and cache hits 0 (over two
+            distinct cards too when there are two);
+            ``index.search(mesh=)`` on (1, 1) and (1, 2) meshes = the
+            search; save / ``load_index`` and a 0.25 budget per shard =
+            the search; a ``VectorService`` over the store, its reload with
+            the mesh and the HYBRID index with a mesh = each direct search;
+            ``MutableIndex.search(mesh=)`` = without the mesh
 
 The kernels phase also holds ``l2_distance`` (the delta scan, with and
 without its keep mask) and ``page_gather_l2`` against their plain versions,
@@ -79,7 +93,9 @@ in every array and search output. Each kernel's launches come from the path
 it serves, counted from 0 just before that path's run: ``page_gather_l2``'s
 from the DiskANN search (its exact rerank, where it is timed at the
 baseline's shapes, (N, 1, d) pages), the distances alone from their own
-entry point ``ops.hamming``, driven once in the kernels phase. Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
+entry point ``ops.hamming``, driven once in the kernels phase; each
+row's ``launches_sharded`` from the sharded phase's counted host fan-out.
+Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero without the last line. It also exits non-zero
 when no CUDA device is present or when it is run outside a checkout of the
@@ -2223,6 +2239,256 @@ def run_serve(ctx: dict, disk, *, device: str, seed: int,
     return out
 
 
+N_SHARDS = 2             # the sharded phase's shards (paper §7)
+# the store's search points, in whole-collection SearchParams (the store
+# scales them per shard with shard_params_for): the defaults (beam 64 ->
+# 16 a shard) and beam 128 (-> 32), where the recall floor is held. At the
+# defaults the 10,000 x 128 store reaches recall@10 0.8228 on the card
+# against the unsharded index's 0.9604, and the JAX package's search over
+# the same store gives the same ids (tools/sharded_recall_ref.py): the
+# per-shard beam is the cause, not the port
+SHARDED_POINTS = {"default": {}, "beam128": {"beam_width": 128}}
+SHARDED_RECALL_POINT = "beam128"
+SHARDED_MIN_RECALL = 0.85
+SHARDED_REQUESTS = 300   # served by SERVE_THREADS threads over 3 collections
+SHARDED_INSERTS, SHARDED_DELETES = 200, 100   # the mutable index under a mesh
+
+
+def _sharded_point(store, index, q, truth, p, *, device: str,
+                   label: str) -> tuple[dict, object]:
+    """The host fan-out at ``p``: warmed up, then counted from 0 through the
+    kernels, then through the plain versions (ids equal for >= 99% of
+    queries, ios and hops exactly); recall@10, each shard's loop iterations
+    and the QPS beside the unsharded ``index``'s default search, in turns.
+    Returns (numbers, the counted result)."""
+    import numpy as np
+
+    from repro_torch.core import recall_at_k
+    from repro_torch.dist import shard_params_for
+    from repro_torch.kernels import ops
+
+    def search(**kw):
+        return store.search(q, k=10, params=p, **kw)
+
+    search()                                  # warm-up
+    search(impl="plain")
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = search()                            # counted
+    launches = ops.launch_counts()
+    plain = search(impl="plain")
+    agree = float((res.ids == plain.ids).all(1).mean())
+    if agree < 0.99:
+        raise AssertionError(f"{label}: kernel and plain paths agree on ids "
+                             f"for only {agree:.4f} of queries")
+    for field in ("ios", "hops"):
+        if not np.array_equal(getattr(res, field), getattr(plain, field)):
+            raise AssertionError(f"{label}: kernel and plain {field} differ")
+    if not (np.isfinite(res.dists[:, 0]).all() and res.ids.shape == (len(q), 10)
+            and res.ids.max() < sum(len(part) for part in store.parts)):
+        raise AssertionError(f"{label}: malformed results")
+    sp = shard_params_for(store.resolve_params(10, p), store.num_shards)
+    sharded_wall, unsharded_wall = _walls_in_turns(
+        search, lambda: index.search(q, k=10), device)
+    return dict(
+        shard_params=dict(beam_width=sp.beam_width, io_batch=sp.io_batch,
+                          max_hops=sp.max_hops),
+        recall_at_10=recall_at_k(res.ids, truth),
+        plain_recall_at_10=recall_at_k(plain.ids, truth),
+        ids_agree_share=agree,
+        dists_max_abs_diff=float(np.abs(res.dists - plain.dists)[
+            np.isfinite(res.dists)].max()),
+        qps=len(q) / sharded_wall, unsharded_qps=len(q) / unsharded_wall,
+        mean_ios=float(res.ios.mean()), mean_hops=float(res.hops.mean()),
+        loop_iterations=[int(s.search(q, k=10, params=sp).hops.max())
+                         for s in store.shards],
+        launches=launches,
+    ), res
+
+
+def run_sharded(ctx: dict, pageann: dict, cfg, *, device: str, seed: int,
+                label: str = "sharded") -> dict:
+    """Data sharding over the e2e data: ``ShardedPageStore.build`` with
+    N_SHARDS shards (one full build each), then
+
+    * the host fan-out at each of SHARDED_POINTS through the kernels
+      (launches counted from 0) and the plain versions: ids equal for >= 99%
+      of queries, ios and hops exactly (``_sharded_point``); recall@10 >=
+      SHARDED_MIN_RECALL at SHARDED_RECALL_POINT, each point's printed
+      beside the unsharded HYBRID index's (``pageann``) with the gap, QPS
+      beside its QPS in turns;
+    * the mesh fan-out on an (N_SHARDS, 1) mesh naming the card N_SHARDS
+      times: the host fan-out's ids, ios and dists exactly, hops and cache
+      hits 0 (the reference's contract); with 2+ cards, again over
+      distinct cards;
+    * the query split (``shard_search``) on the unsharded HYBRID index, on
+      the (1, 1) host mesh and a (1, 2) mesh: ``index.search`` exactly;
+    * save, ``load_index``, and a load at BUDGET per shard: the search
+      exactly (the budgeted store's mesh path refuses);
+    * a ``VectorService`` over the store, its reload attached with the
+      mesh, and the HYBRID index with the host mesh: SHARDED_REQUESTS from
+      SERVE_THREADS threads, each equal to its direct search; the compile
+      cache's counters;
+    * ``MutableIndex.search(mesh=)`` with writes pending = without the
+      mesh.
+    Everything after the first item runs at the default point. Returns the
+    numbers; ``launches`` are the counted default-point host fan-out's."""
+    import numpy as np
+
+    from repro_torch.core import MutableIndex, SearchParams, load_index
+    from repro_torch.dist import ShardedPageStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.serve import VectorService
+
+    index, x, q, truth = ctx["index"], ctx["x"], ctx["q"], ctx["truth"]
+    t0 = time.perf_counter()
+    store = ShardedPageStore.build(x, cfg, N_SHARDS, device=device)
+    build_s = time.perf_counter() - t0
+
+    points = {}
+    for point, kw in SHARDED_POINTS.items():
+        points[point], counted = _sharded_point(
+            store, index, q, truth, SearchParams(**kw), device=device,
+            label=f"{label}: {point}")
+        points[point]["recall_gap"] = (pageann["recall_at_10"]
+                                       - points[point]["recall_at_10"])
+        if point == "default":
+            res = counted
+
+    def search(**kw):
+        return store.search(q, k=10, **kw)
+
+    # the mesh fan-out: one shard per position of the data axis
+    card = make_host_mesh(device).flat[0]
+    mesh = make_mesh((N_SHARDS, 1), ("data", "model"), devices=[card] * N_SHARDS)
+    ops.reset_launch_counts()
+    mres = search(mesh=mesh)
+    mesh_launches = ops.launch_counts()
+
+    def mesh_equal(got, what):
+        for field in ("ids", "ios", "dists"):
+            if not np.array_equal(getattr(got, field), getattr(res, field)):
+                raise AssertionError(f"{label}: {what} {field} differ from "
+                                     "the host fan-out")
+        if got.hops.any() or got.cache_hits.any():
+            raise AssertionError(f"{label}: {what} reports hops or cache "
+                                 "hits (the reference's are 0)")
+
+    mesh_equal(mres, "mesh path")
+    host_wall, mesh_wall = _walls_in_turns(search, lambda: search(mesh=mesh),
+                                           device)
+    n_cards = 0
+    if device == "cuda":
+        import torch
+
+        n_cards = torch.cuda.device_count()
+    if n_cards >= N_SHARDS:
+        spread = make_mesh((N_SHARDS, 1), ("data", "model"))
+        mesh_equal(search(mesh=spread), "mesh over distinct cards")
+        multi = f"{spread.distinct_devices} distinct cards: equal"
+    else:
+        multi = (f"skipped: {n_cards} CUDA device(s), a mesh over distinct "
+                 f"cards needs {N_SHARDS}")
+
+    # the query split over the unsharded index's replicas
+    want = index.search(q, k=10)
+    split = make_mesh((1, 2), ("data", "model"), devices=[card] * 2)
+    for m in (make_host_mesh(device), split):
+        _search_equal(index.search(q, k=10, mesh=m), want,
+                      f"{label}: shard_search on a {m.dims} mesh")
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    directory = tempfile.mkdtemp(dir=SCRATCH)
+    try:
+        art = os.path.join(directory, "store")
+        store.save(art)
+        reloaded = load_index(art, device=device)
+        _search_equal(reloaded.search(q, k=10), res, f"{label}: reloaded")
+        budgeted = load_index(art, device=device, memory_budget=BUDGET)
+        _search_equal(budgeted.search(q, k=10), res,
+                      f"{label}: loaded at budget {BUDGET}")
+        fetched = budgeted.fetch_stats()["pages_fetched"]
+        if not fetched:
+            raise AssertionError(f"{label}: the budgeted store fetched nothing")
+        try:
+            budgeted.search(q, k=10, mesh=mesh)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{label}: a budgeted store searched a mesh")
+        del budgeted
+
+        names = ("sharded", "sharded_mesh", "hybrid_mesh")
+        with VectorService(device=device, batch_size=SERVE_BATCH) as svc:
+            svc.create_collection("sharded", store, k=10)
+            svc.attach("sharded_mesh", art, k=10, mesh=mesh)
+            svc.create_collection("hybrid_mesh", index, k=10,
+                                  mesh=make_host_mesh(device))
+            rows, serve_wall = _serve_requests(svc, names, q, SHARDED_REQUESTS,
+                                               flush=True, label=label)
+            served = svc.metrics()
+            stats = svc.stats()["sharded"]
+        serve_diff = _rows_equal(rows, {"sharded": res, "sharded_mesh": mres,
+                                        "hybrid_mesh": want},
+                                 names, len(q), label)
+        if served.compile_misses != 3 or served.compiled_executables != 3:
+            raise AssertionError(f"{label}: {served.compile_misses} compile "
+                                 f"misses, {served.compiled_executables} "
+                                 "executables for 3 collections")
+        if stats != store.stats:
+            raise AssertionError(f"{label}: service stats {stats} are not the "
+                                 "store's")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    m = MutableIndex(index, auto_compact=False)
+    m.insert(fresh_vectors(len(x), SHARDED_INSERTS, x.shape[1], seed + 5),
+             ids=np.arange(len(x), len(x) + SHARDED_INSERTS))
+    m.delete(np.arange(SHARDED_DELETES))
+    _search_equal(m.search(q, k=10, mesh=make_host_mesh(device)),
+                  m.search(q, k=10), f"{label}: mutable search with a mesh")
+
+    default = points["default"]
+    profile = _profile_search(store, q) if device == "cuda" else None
+    if profile is not None and profile["device_busy_ms"] is not None:
+        profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] * (
+            default["qps"] / len(q) / 1e3)
+    out = dict(
+        n=len(x), dim=x.shape[1], queries=len(q), shards=N_SHARDS,
+        shard_sizes=[len(p) for p in store.parts], build_s=build_s,
+        stats=store.stats, points=points,
+        unsharded=dict(recall_at_10=pageann["recall_at_10"],
+                       mean_ios=pageann["mean_ios"],
+                       mean_hops=pageann["mean_hops"]),
+        launches=default["launches"], mesh_launches=mesh_launches,
+        mesh_qps=len(q) / mesh_wall, host_qps_beside_mesh=len(q) / host_wall,
+        mesh_distinct_devices=mesh.distinct_devices,
+        multi_card=multi, budget_pages_fetched=fetched,
+        serve=dict(requests=SHARDED_REQUESTS, qps=SHARDED_REQUESTS / serve_wall,
+                   p50_ms=served.latency_ms_p50, p99_ms=served.latency_ms_p99,
+                   batches=served.batches,
+                   compile_misses=served.compile_misses,
+                   compile_hits=served.compile_hits,
+                   compiled_executables=served.compiled_executables,
+                   dists_max_abs_diff=serve_diff),
+        profile=profile,
+    )
+    emit(label, **out)
+    recall = points[SHARDED_RECALL_POINT]["recall_at_10"]
+    if recall < SHARDED_MIN_RECALL:
+        raise AssertionError(f"{label}: recall@10 {recall:.4f} < "
+                             f"{SHARDED_MIN_RECALL} at {SHARDED_RECALL_POINT}")
+    for point, row in points.items():
+        if device == "cuda" and row["launches"]["hamming"] != N_SHARDS:
+            raise AssertionError(f"{label}: {point}: {row['launches']['hamming']}"
+                                 f" hamming launches for {N_SHARDS} shards")
+    return out
+
+
 def filter_exprs(scores, *, full: bool) -> dict:
     """The predicates of the filter phase: numeric bounds at each
     selectivity (quantiles of the score column) and a tag-and-numeric
@@ -2282,6 +2548,7 @@ def main(argv=None) -> int:
     # streamed searches (page_scan_recs*), the filtered ones (*_masked);
     # each adaptive setting's search is counted on its own as well
     launches, adaptive_launches, baseline_launches = {}, {}, {}
+    sharded_launches = {}
     for cfg, label in ((cfg_h, "e2e"), (cfg_m, "e2e_memall")):
         hybrid = cfg is cfg_h
         run, ctx = run_e2e(cfg, args.n if hybrid else N_MEMALL,
@@ -2321,6 +2588,8 @@ def main(argv=None) -> int:
             launches["page_gather_l2"] = baseline_launches["page_gather_l2"]
             run_serve(ctx, bl.pop("index"), device="cuda", seed=args.seed)
             del bl
+            sharded_launches = run_sharded(ctx, run, cfg_h, device="cuda",
+                                           seed=args.seed)["launches"]
         del ctx
         torch.cuda.empty_cache()
     run_compaction(cfg_h, device="cuda", seed=args.seed)
@@ -2339,6 +2608,7 @@ def main(argv=None) -> int:
             launches=launches[name], launches_path=PATHS[name],
             launches_adaptive=adaptive_launches.get(name, {}),
             launches_baselines=baseline_launches.get(name, 0),
+            launches_sharded=sharded_launches.get(name, 0),
             max_abs_err=smoke.err[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -437,6 +437,7 @@ class MutableIndex:
         k: int | None = None,
         params: SearchParams | None = None,
         *,
+        mesh=None,
         filter: FilterExpr | None = None,
         filter_params=None,
         impl: str | None = None,
@@ -448,12 +449,16 @@ class MutableIndex:
         ``filter`` applies to BOTH tiers: the base search pushes it into the
         page scan (under the base's vocabulary), the delta scan masks rows
         under the unified vocabulary, so an insert is filterable before any
-        compaction. ``impl="plain"`` runs the base search and the delta scan
-        through the kernels' plain versions.
+        compaction. ``mesh`` goes to the base search (``shard_search``
+        over its devices); the delta scan runs on the base's device.
+        ``impl="plain"`` runs the base search and the delta scan through
+        the kernels' plain versions.
         """
         s = self._state
         p = resolve_search_params(s.base.default_params, k, params)
         kwargs = {"impl": impl}
+        if mesh is not None:
+            kwargs["mesh"] = mesh
         delta_cf = None
         if filter is not None:
             kwargs.update(filter=filter, filter_params=filter_params)

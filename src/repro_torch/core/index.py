@@ -5,13 +5,13 @@ page-node grouping (Alg. 1) -> PQ codebooks (coarse on-page + fine
 in-memory) -> id reassignment + page packing (Sec 4.2/5) -> LSH routing
 index -> memory-disk coordination (Sec 4.3) with optional warm-up page
 caching, and metadata columns for filtered search when a schema is given.
-``search`` runs ``core.search.batch_search`` (or ``stream_search`` on an
-index loaded under a memory budget) on the index's device and translates
-results back to original vector ids; ``profile`` runs the same search with
-its per-hop trail kept. ``autotune`` finds the cheapest operating point
-meeting a recall (or p99 latency) target over the loaded index, and the
-winner becomes ``default_params`` (persisted in the manifest's ``tuned``
-section).
+``search`` runs ``core.search.batch_search`` (``stream_search`` on an
+index loaded under a memory budget, ``shard_search`` with a device mesh)
+on the index's device and translates results back to original vector
+ids; ``profile`` runs the same search with its per-hop trail kept.
+``autotune`` finds the cheapest operating point meeting a recall (or p99
+latency) target over the loaded index, and the winner becomes
+``default_params`` (persisted in the manifest's ``tuned`` section).
 """
 from __future__ import annotations
 
@@ -278,11 +278,19 @@ class PageANNIndex:
 
     def _raw_search(
         self, q: torch.Tensor, params: SearchParams, impl: str | None = None,
-        meta: MetaArrays | None = None, cfilter=None,
+        meta: MetaArrays | None = None, cfilter=None, mesh=None,
     ) -> search_mod.SearchResult:
         kw = dict(capacity=self.store.capacity,
                   mode=self.cfg.memory_mode.value,
                   meta=meta, cfilter=cfilter, impl=impl)
+        if mesh is not None:
+            if self.fetcher is not None:
+                raise ValueError(
+                    "sharded search over a streamed (memory-budgeted) index "
+                    "is not supported: reload without memory_budget to "
+                    "search across a mesh"
+                )
+            return search_mod.shard_search(q, self.data, params, mesh=mesh, **kw)
         if self.fetcher is not None:
             if self._stage is None:
                 self._stage = search_mod.PinnedStage(self.fetcher)
@@ -363,6 +371,7 @@ class PageANNIndex:
         k: int | None = None,
         params: SearchParams | None = None,
         *,
+        mesh=None,
         filter: FilterExpr | None = None,
         filter_params: FilterParams | None = None,
         impl: str | None = None,
@@ -371,9 +380,12 @@ class PageANNIndex:
 
         ``params`` supplies the runtime knobs (``default_params`` when
         None: the autotuned point, else the build config's); ``k``
-        overrides ``params.k`` when given. ``impl="plain"`` runs the
-        kernels' plain versions on the index's device (for comparing the
-        two; the default runs the kernels on a GPU).
+        overrides ``params.k`` when given. Passing a device mesh
+        (``repro_torch.launch.mesh``) routes through ``shard_search``: the
+        query batch split across its devices, the same results.
+        ``impl="plain"`` runs the kernels' plain versions on the index's
+        device (for comparing the two; the default runs the kernels on a
+        GPU).
 
         ``filter`` restricts results to vectors whose metadata satisfies
         the predicate (``core.filter``): non-passing members score ``+inf``
@@ -385,7 +397,7 @@ class PageANNIndex:
         p, meta, cfilter = self._filtered(
             self.resolve_params(k, params), filter, filter_params)
         res = self._raw_search(self._queries(queries), p, impl=impl,
-                               meta=meta, cfilter=cfilter)
+                               meta=meta, cfilter=cfilter, mesh=mesh)
         return self._host_result(res)
 
     def _filtered(self, p: SearchParams, filter: FilterExpr | None,

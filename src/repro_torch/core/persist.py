@@ -18,9 +18,12 @@ A mutable index (``core.delta.MutableIndex``) persists as
 map, metadata codes) and a manifest ``generation`` counter; compaction
 replaces the whole directory atomically (``swap_mutable``). The DiskANN
 and Starling baselines (``core.baselines``) persist as ``kind="diskann"`` /
-``"starling"``: a manifest and an ``arrays.npz``. ``load_index`` opens any
-of these kinds; a database (``save_database``) is a ``db.json`` over one
-such artifact per named collection.
+``"starling"``: a manifest and an ``arrays.npz``. A sharded store
+(``repro_torch.dist.ShardedPageStore``) persists as ``kind="sharded"``:
+one PageANN artifact per shard under ``shard-<i>/`` and a ``shards.npz``
+of global-id slices. ``load_index`` opens any of these kinds; a database
+(``save_database``) is a ``db.json`` over one such artifact per named
+collection.
 
 It is framework-neutral, so ``load_pageann`` / ``load_mutable`` are how an
 index built and saved by the JAX package reaches the port (and the reverse
@@ -744,8 +747,9 @@ def load_index(directory: str, *, device: str | torch.device = "cuda",
     :class:`MutableIndex`, ``"diskann"`` / ``"starling"`` as a baseline
     index. ``memory_budget`` caps the device-resident pages of the page
     tier (a mutable index's base tier); the baselines have none and reject
-    a budget rather than ignore it. ``"sharded"`` is not ported yet and
-    raises ``NotImplementedError``."""
+    a budget rather than ignore it. ``"sharded"`` loads as a
+    :class:`repro_torch.dist.ShardedPageStore`, the budget applying to each
+    shard."""
     from repro_torch.core import baselines as bl
 
     kind = read_manifest(directory)["kind"]
@@ -755,6 +759,12 @@ def load_index(directory: str, *, device: str | torch.device = "cuda",
     if kind == "mutable":
         return load_mutable(directory, device=device,
                             memory_budget=memory_budget)
+    if kind == "sharded":
+        # lazy: repro_torch.dist sits above core and imports this module
+        from repro_torch.dist.sharded import ShardedPageStore
+
+        return ShardedPageStore.load(directory, device=device,
+                                     memory_budget=memory_budget)
     if kind in bl.BASELINE_KINDS:
         if memory_budget is not None:
             raise ValueError(
@@ -762,9 +772,4 @@ def load_index(directory: str, *, device: str | torch.device = "cuda",
                 "in-memory; memory_budget is not supported"
             )
         return bl.load_baseline(directory, device=device)
-    if kind == "sharded":
-        raise NotImplementedError(
-            f"{directory}: kind='sharded' indexes are not ported yet: "
-            "ROADMAP queue A, item 12"
-        )
     raise ValueError(f"{directory}: unknown index kind {kind!r}")

@@ -3,10 +3,16 @@
 Copy of ``repro.core.protocol``. :class:`repro_torch.core.index.PageANNIndex`
 speaks :class:`VectorIndex`:
 
-  * ``search(queries, k=None, params=None) -> SearchResult``: runtime knobs
-    arrive per call as a :class:`repro_torch.core.config.SearchParams`
-    (``k`` overrides ``params.k`` when given); results carry ORIGINAL
-    vector ids and the paper's I/O accounting.
+  * ``search(queries, k=None, params=None, *, mesh=None) -> SearchResult``:
+    runtime knobs arrive per call as a
+    :class:`repro_torch.core.config.SearchParams` (``k`` overrides
+    ``params.k`` when given); results carry ORIGINAL vector ids and the
+    paper's I/O accounting. ``mesh`` (a ``repro_torch.launch.mesh.Mesh``)
+    spreads one search over devices: the PageANN index splits the query
+    batch over it, the sharded store (``repro_torch.dist``) puts a shard
+    on each position of its ``data`` axis, the mutable index passes it to
+    its base. (The reference's protocol leaves the keyword out; the
+    baselines have no mesh path and do not take it.)
   * ``save(directory)``: persist the index artifact to disk.
   * ``load(directory)`` (classmethod): reload it; searches on the loaded
     index equal the saved one's bit for bit. Implementations with a page
@@ -48,6 +54,8 @@ class VectorIndex(Protocol):
         queries: np.ndarray,
         k: int | None = None,
         params: SearchParams | None = None,
+        *,
+        mesh=None,
     ) -> SearchResult: ...
 
     def save(self, directory: str) -> None: ...

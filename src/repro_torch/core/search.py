@@ -34,8 +34,11 @@ kernel code as ``page_scan``, so every result equals the resident search
 bit for bit. Filtered search pushes the predicate into the scan as a member
 mask; neighbour estimates stay unmasked so the graph stays traversable.
 
-``merge_topk_streams`` folds the mutable index's two result streams (the
-page-file search and the delta tier's scan) into one top-k.
+``shard_search`` splits a query batch over the devices of a mesh, each
+block searched by ``batch_search`` against a copy of the index on its
+device. ``merge_topk_streams`` folds two result streams into one top-k:
+the mutable index's page-file search and delta scan, and the sharded
+store's per-shard results (``repro_torch.dist``).
 
 Ties break as in the reference: ``lax.top_k`` and ``lax.sort(is_stable=
 True)`` both favour the lower index, so every selection here is a stable
@@ -688,6 +691,53 @@ def stream_search(
         queries, data, params, capacity=capacity, mode=mode, meta=meta,
         cfilter=cfilter, impl=impl, fetch=stage,
     )
+
+
+def shard_search(
+    queries: torch.Tensor,
+    data: SearchData,
+    params: SearchParams,
+    *,
+    mesh=None,
+    capacity: int,
+    mode: str,
+    meta: MetaArrays | None = None,
+    cfilter: CompiledFilter | None = None,
+    impl: str | None = None,
+) -> SearchResult:
+    """``batch_search`` with the query batch split across a device mesh.
+
+    The index (``data``) is replicated on every device of ``mesh`` (a
+    ``repro_torch.launch.mesh.Mesh``; the (1, 1) mesh on the queries'
+    device when None): the (Q, d) batch is split over all mesh positions,
+    row-major, in blocks of ceil(Q / devices), the paper's "query threads"
+    mapped onto cards. A device named more than once searches each of its
+    blocks in turn against one copy of the index. The reference pads a
+    ragged batch with ``valid=False`` rows; the port's lanes are
+    independent, so the last block is simply shorter. The results are
+    gathered back onto the queries' device and equal ``batch_search``'s bit
+    for bit. (Index sharding, partitioning the vectors themselves, is the
+    orthogonal axis and lives in ``core.distributed``.)
+    """
+    if mesh is None:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(queries.device)
+    out = queries.device
+    step = max(1, -(-queries.shape[0] // mesh.size))
+    copies: dict = {}
+    parts = []
+    for dev, q_blk in zip(mesh.flat, torch.split(queries, step)):
+        if dev not in copies:
+            copies[dev] = (
+                SearchData(*(t.to(dev) for t in data)),
+                None if meta is None else meta.to(dev),
+            )
+        d, m = copies[dev]
+        res = batch_search(q_blk.to(dev), d, params, capacity=capacity,
+                           mode=mode, meta=m, cfilter=cfilter, impl=impl)
+        parts.append(SearchResult(*(t.to(out) for t in res)))
+    return SearchResult(*(torch.cat(ts) for ts in zip(*parts)))
 
 
 def merge_topk_streams(

@@ -2,9 +2,10 @@
 
 Port of ``repro.serve.engine``. The search behind a collection runs on its
 index's device (the card by default); the engine itself is host-side
-Python, and results come back as numpy arrays, as in the reference. The
-reference's ``mesh=`` dispatch (``shard_search``) is not ported yet
-(ROADMAP queue A, item 12).
+Python, and results come back as numpy arrays, as in the reference. A
+collection registered with ``mesh=`` dispatches through its index's mesh
+search (``shard_search`` for a PageANN index, the data-axis fan-out for a
+sharded store).
 
 The reference's jitted search is fixed-shape: one compiled executable per
 (batch, k, SearchParams, index geometry) signature. A serving workload,
@@ -329,6 +330,7 @@ class BatchingEngine:
         compact_fn: Callable | None = None,
         geometry: tuple | None = None,
         resolve_fn: Callable | None = None,
+        mesh=None,
         priority: float = 1.0,
     ) -> None:
         """Register a named collection on the shared batching core.
@@ -337,7 +339,8 @@ class BatchingEngine:
         speaking the :class:`repro_torch.core.protocol.VectorIndex`
         protocol — its search/write surface and compile-cache geometry are
         derived automatically (a ``MutableVectorIndex`` wires insert/
-        delete/compact).
+        delete/compact; with ``mesh=`` every dispatch passes the mesh to
+        ``index.search``, e.g. ``shard_search`` over a ``PageANNIndex``).
         """
         if not name or not isinstance(name, str):
             raise ValueError("collection name must be a non-empty string")
@@ -354,14 +357,24 @@ class BatchingEngine:
                 index.search
             ).parameters
 
-            def search_fn(queries, k_bin, p, flt=None, _index=index):
-                kw = {} if flt is None else {"filter": flt}
+            def search_fn(queries, k_bin, p, flt=None, _index=index,
+                          _mesh=mesh):
+                kw = {}
+                if _mesh is not None:
+                    kw["mesh"] = _mesh
+                if flt is not None:
+                    kw["filter"] = flt
                 return _index.search(queries, k=k_bin, params=p, **kw)
 
             dim = index.dim
             if default_params is None:
                 default_params = getattr(index, "default_params", None)
             geometry = geometry if geometry is not None else geometry_of(index)
+            if mesh is not None:
+                # a mesh dispatch runs shard_search, not batch_search (the
+                # reference's separate executable): same index geometry,
+                # another compile identity
+                geometry = geometry + (("mesh", mesh),)
             if resolve_fn is None:
                 resolve_fn = getattr(index, "resolve_params", None)
             insert_fn = insert_fn or getattr(index, "insert", None)
@@ -1125,6 +1138,7 @@ class BatchingEngine:
         timeout_ms: float | None = None,
         params: SearchParams | None = None,
         k_bins: tuple[int, ...] | None = None,
+        mesh=None,
         **kwargs,
     ) -> "BatchingEngine":
         """One-collection engine over any built/loaded ``VectorIndex``;
@@ -1137,7 +1151,9 @@ class BatchingEngine:
         params)`` — PageANN, DiskANN, Starling, or a ``MutableIndex``
         alike. When the index speaks the ``MutableVectorIndex`` writes
         (insert/delete/compact), the engine exposes them as request types
-        that interleave safely with in-flight searches.
+        that interleave safely with in-flight searches. For a
+        ``PageANNIndex``, passing a mesh (``repro_torch.launch.mesh``)
+        dispatches ``shard_search`` with the query batch split across it.
         """
         eng = cls(
             batch_size=batch_size,
@@ -1150,5 +1166,6 @@ class BatchingEngine:
             index=index,
             default_k=k,
             default_params=params,
+            mesh=mesh,
         )
         return eng

@@ -2,8 +2,8 @@
 
 Port of ``repro.serve.service``. Every index it builds, attaches or loads
 lives on the service's ``device`` (the card by default; ``device="cpu"``
-must be asked for). The reference's ``mesh=`` routing is not ported yet
-(ROADMAP queue A, item 12).
+must be asked for). A collection created or attached with ``mesh=``
+routes its dispatches through its index's mesh search.
 
 The paper frames PageANN as the engine of a vector database; this module
 is the database surface. A :class:`VectorService` owns
@@ -174,6 +174,7 @@ class VectorService:
         *,
         k: int | None = None,
         params: SearchParams | None = None,
+        mesh=None,
         priority: float = 1.0,
         **build_kwargs: Any,
     ) -> CollectionHandle:
@@ -183,9 +184,11 @@ class VectorService:
         or a :class:`PageANNConfig` — then ``vectors`` supplies the corpus
         and the index is built here, on the service's device
         (``build_kwargs`` forwarded to ``PageANNIndex.build``).
-        ``k``/``params`` set the collection's serving defaults;
-        ``priority`` weights this collection's dispatch order on the shared
-        core (see ``BatchingEngine.add_collection``).
+        ``k``/``params`` set the collection's serving defaults; ``mesh``
+        routes its dispatches through ``shard_search`` (a sharded store:
+        its data-axis fan-out); ``priority`` weights this collection's
+        dispatch order on the shared core (see
+        ``BatchingEngine.add_collection``).
         """
         persist.check_collection_name(name)
         if isinstance(index_or_cfg, PageANNConfig):
@@ -219,7 +222,7 @@ class VectorService:
         try:
             self._engine.add_collection(
                 name, index=index, default_k=k, default_params=params,
-                priority=priority,
+                mesh=mesh, priority=priority,
             )
         except Exception:
             with self._lock:
@@ -234,6 +237,7 @@ class VectorService:
         *,
         k: int | None = None,
         params: SearchParams | None = None,
+        mesh=None,
         memory_budget=None,
         recall_target: float | None = None,
         priority: float = 1.0,
@@ -264,7 +268,7 @@ class VectorService:
                 )
             params = index.params_for_target(recall_target=recall_target)
         return self.create_collection(
-            name, index, k=k, params=params, priority=priority,
+            name, index, k=k, params=params, mesh=mesh, priority=priority,
         )
 
     def drop(self, name: str) -> None:

@@ -782,3 +782,88 @@ def test_service_serves_baseline_and_pageann_collections_on_the_card(
             np.testing.assert_array_equal(
                 np.stack([getattr(r.result, field) for r in rows]),
                 getattr(want, field))
+
+
+@pytest.fixture(scope="module")
+def card_store():
+    """A 2-shard ``ShardedPageStore`` built on the card over the
+    ``card_index`` data, and its queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.core import MemoryMode, PageANNConfig
+    from repro_torch.data.pipeline import clustered_vectors, query_vectors
+    from repro_torch.dist import ShardedPageStore
+
+    x = clustered_vectors(1500, 32, num_clusters=16, seed=0)
+    cfg = PageANNConfig(dim=32, graph_degree=12, build_beam=24, build_rounds=1,
+                        pq_subspaces=8, lsh_sample=256, lsh_entries=8,
+                        beam_width=48, max_hops=48, memory_mode=MemoryMode.HYBRID)
+    return ShardedPageStore.build(x, cfg, 2, device="cuda"), query_vectors(x, 200, seed=1)
+
+
+@pytest.mark.cuda
+def test_sharded_store_through_the_kernels_matches_plain(card_store, card_index,
+                                                         tmp_path):
+    """The host fan-out through the kernels against the plain versions (ids
+    for >= 99% of queries, ios and hops exactly; one ``hamming`` launch a
+    shard); the mesh fan-out on a mesh naming the card twice equals it
+    (ids, ios, dists), with hops and cache hits 0; the query split of
+    ``shard_search`` equals the plain search exactly; a save, ``load_index``
+    and a 0.25 budget load equal it exactly."""
+    from repro_torch.core import load_index
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    store, q = card_store
+    ops.reset_launch_counts()
+    got = store.search(q, k=10)
+    counts = ops.launch_counts()
+    assert counts["hamming"] == 2 and counts["page_scan"] > 0 and counts["pq_adc"] > 0
+    plain = store.search(q, k=10, impl="plain")
+    assert (got.ids == plain.ids).all(1).mean() >= 0.99
+    np.testing.assert_array_equal(got.ios, plain.ios)
+    np.testing.assert_array_equal(got.hops, plain.hops)
+    np.testing.assert_allclose(got.dists, plain.dists, rtol=1e-5, atol=1e-4)
+    mesh = make_mesh((2, 1), ("data", "model"), devices=["cuda:0"] * 2)
+    assert mesh.distinct_devices == 1
+    ops.reset_launch_counts()
+    viamesh = store.search(q, k=10, mesh=mesh)
+    assert ops.launch_counts()["hamming"] == 2
+    for field in ("ids", "ios", "dists"):
+        np.testing.assert_array_equal(getattr(viamesh, field), getattr(got, field))
+    assert not viamesh.hops.any() and not viamesh.cache_hits.any()
+    index, qp = card_index
+    want = index.search(qp, k=10)
+    for m in (make_host_mesh(), make_mesh((1, 2), ("data", "model"),
+                                          devices=["cuda:0"] * 2)):
+        again = index.search(qp, k=10, mesh=m)
+        for field in want._fields:
+            np.testing.assert_array_equal(getattr(again, field), getattr(want, field))
+    store.save(str(tmp_path / "store"))
+    for budget in (None, 0.25):
+        loaded = load_index(str(tmp_path / "store"), device="cuda",
+                            memory_budget=budget)
+        again = loaded.search(q, k=10)
+        for field in got._fields:
+            np.testing.assert_array_equal(getattr(again, field), getattr(got, field))
+
+
+@pytest.mark.cuda
+def test_mesh_over_distinct_cards(card_store, card_index):
+    """With two cards, each shard searches on its own card and each query
+    block on its own replica: the results equal the one-card searches."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices for a mesh over distinct cards")
+    from repro_torch.launch.mesh import make_mesh
+
+    store, q = card_store
+    spread = make_mesh((2, 1), ("data", "model"))
+    assert spread.distinct_devices == 2
+    want = store.search(q, k=10)
+    got = store.search(q, k=10, mesh=spread)
+    for field in ("ids", "ios", "dists"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    index, qp = card_index
+    want = index.search(qp, k=10)
+    got = index.search(qp, k=10, mesh=make_mesh((1, 2), ("data", "model")))
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))

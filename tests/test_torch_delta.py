@@ -354,7 +354,9 @@ def test_budgeted_load_equals_resident(bases, tmp_path):
 def test_load_index_kinds(hybrid_base, tmp_path):
     """``load_index`` opens the ported kinds; the baseline kinds go to the
     baseline loader, which refuses a memory budget (they have no page
-    tier), and the one kind not ported yet is refused by name."""
+    tier), and a PageANN artifact relabelled ``"sharded"`` (no shard count,
+    no ``shards.npz``) goes to the sharded store's loader, which fails on it
+    as the reference's does."""
     _, tbase, directory = hybrid_base
     assert isinstance(load_index(directory, device="cpu"), PageANNIndex)
     fake = tmp_path / "baseline"
@@ -362,10 +364,14 @@ def test_load_index_kinds(hybrid_base, tmp_path):
     for kind, err, match in (
             ("diskann", ValueError, "memory_budget is not supported"),
             ("starling", ValueError, "memory_budget is not supported"),
-            ("sharded", NotImplementedError, "item 12")):
+            ("sharded", None, None)):
         doc = json.loads((fake / "manifest.json").read_text())
         doc["kind"] = kind
         (fake / "manifest.json").write_text(json.dumps(doc))
+        if err is None:
+            with pytest.raises(Exception) as want:
+                jax_load_index(str(fake), memory_budget=0.5)
+            err = want.type
         with pytest.raises(err, match=match):
             load_index(str(fake), device="cpu", memory_budget=0.5)
     with pytest.raises(ValueError, match="int32"):
