@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 10-13 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 12-15 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -18,6 +18,22 @@ version. Phases, one JSON line each:
             in HYBRID pages (about 2 GB of records on the device), and one
             streamed hop with 25% of those pages on the card and the rest
             read from a pages.bin memmap
+  lm_serve  the dense decoder at granite-3-2b's full CONFIG (40 layers,
+            d_model 2048, 2,635,237,376 f32 parameters) on the card:
+            ``generate`` (batch 8, 32 prompt tokens prefilled token by
+            token, 16 greedy) timed, one decode step profiled (launches,
+            idle share) against its weights-read bound, prefill = decode
+            within 2e-2, a 2-layer cut held to the CPU; 2,000 documents
+            (mean token embeddings, d = 2048: HYBRID capacity 1) in a
+            PageANN index and a two-collection database; the port's serving
+            driver ``repro_torch.launch.serve.main`` over ``--index-dir``,
+            ``--mutable`` (self-retrieval), ``--memory-budget 0.25`` (the
+            resident run's ids) and ``--db-dir`` with routing, the semantic
+            cache (every replay a hit), the metrics sidecar's self-check, a
+            trace and the HTTP frontend; 1,000 queries through the kernels
+            and the plain versions, resident, streamed and mutable (1,000
+            inserts), with recall@10; ``page_scan``, ``page_scan_recs``,
+            ``pq_adc``, ``hamming`` and ``l2_distance`` at these shapes
   e2e       ``PageANNIndex.build`` (with a seeded metadata schema) ->
             ``search`` -> ``recall_at_k`` in HYBRID (the main path, 10,000
             vectors) and MEM_ALL (members-only page scan, 5,000 vectors:
@@ -94,7 +110,10 @@ it serves, counted from 0 just before that path's run: ``page_gather_l2``'s
 from the DiskANN search (its exact rerank, where it is timed at the
 baseline's shapes, (N, 1, d) pages), the distances alone from their own
 entry point ``ops.hamming``, driven once in the kernels phase; each
-row's ``launches_sharded`` from the sharded phase's counted host fan-out.
+row's ``launches_sharded`` from the sharded phase's counted host fan-out,
+``launches_lm_serve`` from the lm_serve phase's four driver runs, and
+``lm_serve_d2048`` the kernel's time, bound and launches at that phase's
+d = 2048 shapes (rows 1-5).
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero without the last line. It also exits non-zero
@@ -2489,6 +2508,490 @@ def run_sharded(ctx: dict, pageann: dict, cfg, *, device: str, seed: int,
     return out
 
 
+# ------------------------------------------------------------------ lm_serve
+LM_ARCH = "granite-3-2b"     # the reference driver's default arch, full width
+# the phase's corpus: examples/serve_rag.py's 2,000 documents; the database
+# holds the same documents as two collections of 1,000
+N_LM_DOCS = 2000
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 32, 16   # the timed generate
+# the 2-layer full-width cut's logits (|logit| up to ~5), card against CPU:
+# cuBLAS and the CPU's BLAS sum in other orders, and where k or v straddles
+# a bf16 rounding boundary the KV cache element lands one bf16 step (2^-8
+# relative) apart. On the H100 0.5% of the cache's k elements did, and the
+# logits differed by up to 0.0033; with a float32 cache (a diagnostic only,
+# tools/lm_cut_card_vs_cpu.py) by 4.9e-6
+LM_LOGIT_TOL = 1e-2
+LM_PREFILL_TOL = 2e-2        # tests/test_models.py's prefill = decode bound
+
+
+def _lm_index_cfg(dim: int):
+    """``examples/serve_rag.py``'s PageANNConfig at the model's width, one
+    build round as in the e2e phase."""
+    from repro_torch.core import MemoryMode, PageANNConfig
+
+    return PageANNConfig(dim=dim, graph_degree=16, build_beam=32,
+                         pq_subspaces=8, lsh_sample=512, lsh_entries=8,
+                         beam_width=48, build_rounds=1,
+                         memory_mode=MemoryMode.HYBRID)
+
+
+def _token_means(model, n: int, vocab: int, seed: int):
+    """``n`` mean embeddings of 16 random tokens each (float32, host), as
+    ``examples/serve_rag.py`` makes its documents and the driver its
+    queries."""
+    import numpy as np
+    import torch
+
+    tokens = np.random.default_rng(seed).integers(0, vocab, (n, 16))
+    with torch.no_grad():
+        emb = model.embed[torch.as_tensor(tokens, device=model.device)]
+        return emb.mean(dim=1).to(torch.float32).cpu().numpy()
+
+
+def _sync(device) -> None:
+    if str(device).startswith("cuda"):
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def _lm_decode(model, arch, prompts, steps: int):
+    """Teacher-forced decode of ``prompts`` then ``steps`` greedy tokens;
+    returns every step's logits (B, V_pad) on the host and the tokens."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    B, T = prompts.shape
+    cache = tf.init_cache(arch, B, T + steps, device=model.device)
+    logits, out, toks = [], [], None
+    for t in range(T + steps):
+        tok = prompts[:, t] if t < T else toks
+        lg, cache = tf.decode_step(model, cache, tok, t, arch)
+        logits.append(lg.cpu())
+        toks = torch.argmax(lg[:, :arch.vocab_size], -1).to(torch.int32)
+        if t >= T - 1:
+            out.append(toks.cpu())
+    return logits, torch.stack(out, 1)
+
+
+def _lm_model_phase(model, arch, *, device, seed: int) -> dict:
+    """The LM on the card: (i) ``generate`` timed (prefill token by token,
+    then greedy steps), a decode step profiled for its launches and the
+    device's idle share, against the weights-read bound; (iii) the last
+    prefill step's logits against ``forward_train``'s at the reference
+    test's 2e-2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    prompts = torch.randint(0, arch.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=device).to(torch.int32)
+
+    def timed(n_gen):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = serve.generate(model, arch, prompts, n_gen)
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    serve.generate(model, arch, prompts, 2)       # warm-up: cuBLAS, allocator
+    walls16, walls1 = [], []
+    for _ in range(2):                            # in turns
+        out, w = timed(LM_GEN)
+        walls16.append(w)
+        walls1.append(timed(1)[1])
+    t16, t1 = float(np.median(walls16)), float(np.median(walls1))
+    if tuple(out.shape) != (LM_BATCH, LM_GEN) or not (
+            (out >= 0) & (out < arch.vocab_size)).all():
+        raise AssertionError(f"lm_serve: generate gave {tuple(out.shape)} "
+                             "tokens or tokens outside the vocabulary")
+    decode_ms = (t16 - t1) * 1e3 / (LM_GEN - 1)
+
+    # one decode step after a prefill, under the profiler
+    logits, _ = _lm_decode(model, arch, prompts, 0)
+    last_prefill = logits[-1]
+    profile = None
+    if str(device).startswith("cuda"):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        cache = tf.init_cache(arch, LM_BATCH, LM_PROMPT + 1, device=device)
+        for t in range(LM_PROMPT):
+            tf.decode_step(model, cache, prompts[:, t], t, arch)
+        tok = prompts[:, -1]
+        _sync(device)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            tf.decode_step(model, cache, tok, LM_PROMPT, arch)
+            _sync(device)
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        by_name: dict = {}
+        for e in kern:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        profile = dict(
+            device_busy_ms=busy if kern else None,
+            device_launches=len(kern),
+            device_idle_share=(1.0 - busy / decode_ms) if kern else None,
+            top=[dict(name=n[:90], device_ms=ms, count=c)
+                 for n, (ms, c) in top])
+
+    # (iii) prefill = token-by-token decode at full width
+    with torch.no_grad():
+        full, _ = tf.forward_train(model, {"tokens": prompts}, arch)
+    full_last = full[:, -1, :arch.vocab_size].cpu()
+    dec_last = last_prefill[:, :arch.vocab_size]
+    prefill_diff = float((full_last - dec_last).abs().max())
+    torch.testing.assert_close(full_last, dec_last, rtol=LM_PREFILL_TOL,
+                               atol=LM_PREFILL_TOL)
+
+    layer_bytes = sum(p.numel() * p.element_size()
+                      for p in model.layers.parameters())
+    unembed = model.unembed if model.unembed is not None else model.embed
+    step_bytes = layer_bytes + unembed.numel() * unembed.element_size()
+    return dict(
+        batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+        generate_s_runs=walls16, prefill_s_runs=walls1,
+        prefill_ms=t1 * 1e3, decode_ms_per_step=decode_ms,
+        decode_tokens_per_s=LM_BATCH / (decode_ms / 1e3),
+        generate_tokens_per_s=LM_BATCH * LM_GEN / t16,
+        step_weight_bytes=step_bytes,
+        step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+        prefill_vs_decode_max_abs_diff=prefill_diff,
+        profile=profile,
+    )
+
+
+def _lm_cut_on_card_vs_cpu(arch, *, device, seed: int) -> dict:
+    """(ii) The full-width config cut to 2 layers, the same weights (a CPU
+    generator) on the card and on the CPU: every step's logits within
+    LM_LOGIT_TOL, the greedy tokens equal."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    cut = dataclasses.replace(arch, num_layers=2)
+    cpu = tf.init_params(cut, torch.Generator().manual_seed(seed), device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    prompts = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+        0, cut.vocab_size, (2, 8)), dtype=torch.int32)
+    got, got_tok = _lm_decode(card, cut, prompts.to(device), 8)
+    want, want_tok = _lm_decode(cpu, cut, prompts, 8)
+    diff = 0.0
+    for g, w in zip(got, want):
+        g, w = g[:, :cut.vocab_size], w[:, :cut.vocab_size]
+        torch.testing.assert_close(g, w, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL)
+        diff = max(diff, float((g - w).abs().max()))
+    if not torch.equal(got_tok, want_tok):
+        raise AssertionError("lm_serve: the card's greedy tokens differ from "
+                             "the CPU's on the 2-layer cut")
+    return dict(layers=2, param_bytes=tf.param_bytes(cpu),
+                steps=len(got), logits_max_abs_diff=diff, tol=LM_LOGIT_TOL,
+                tokens_equal=True)
+
+
+def _driver(argv, *, device, label: str) -> tuple[str, dict, float]:
+    """``repro_torch.launch.serve.main(argv)`` with its output captured and
+    echoed as one phase line; returns (output, launches, seconds). A
+    ``SystemExit`` (a failed self-retrieval or self-check) fails the phase."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv, device=device)
+    except SystemExit as e:
+        raise AssertionError(f"lm_serve {label}: the driver exited: {e}")
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    emit("lm_serve", stage="driver", run=label, argv=argv, seconds=seconds,
+         launches={k: v for k, v in launches.items() if v},
+         output=buf.getvalue().splitlines())
+    return buf.getvalue(), launches, seconds
+
+
+def _retrieved(text: str) -> str:
+    """The ids block a driver printed for an ``--index-dir`` run."""
+    return text.split("retrieved ids per prompt:\n")[1].split("\ngenerated ")[0]
+
+
+def _lm_searches(index, directory, docs, q, extra, *, device) -> dict:
+    """The d = 2048 retrieval through the kernels and the plain versions:
+    resident, streamed at BUDGET and a MutableIndex with ``extra`` inserted;
+    ids equal for >= 99% of queries, ios and hops exactly; recall@10 against
+    brute force printed (no floor). Returns each search's launches."""
+    import numpy as np
+
+    from repro_torch.core import MutableIndex, PageANNIndex, recall_at_k
+    from repro_torch.core.vamana import brute_force_knn
+    from repro_torch.kernels import ops
+
+    streamed = PageANNIndex.load(directory, device=device,
+                                 memory_budget=BUDGET)
+    mutable = MutableIndex(index, auto_compact=False)
+    mutable.insert(extra)
+    truth = brute_force_knn(docs, q, 10)
+    truth_mut = brute_force_knn(np.concatenate([docs, extra]), q, 10)
+    out, resident = {}, None
+    for name, idx, want in (("resident", index, truth),
+                            ("streamed", streamed, truth),
+                            ("mutable", mutable, truth_mut)):
+        idx.search(q, k=10)                       # warm-up
+        ops.reset_launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        got = idx.search(q, k=10)                 # counted
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        plain = idx.search(q, k=10, impl="plain")
+        agree = float((got.ids == plain.ids).all(1).mean())
+        row = dict(
+            queries=len(q), wall_ms=wall * 1e3, qps=len(q) / wall,
+            recall_at_10=recall_at_k(got.ids, want),
+            plain_recall_at_10=recall_at_k(plain.ids, want),
+            ids_agree_share=agree,
+            mean_ios=float(np.mean(got.ios)), mean_hops=float(np.mean(got.hops)),
+            launches={k: v for k, v in launches.items() if v})
+        out[name] = row
+        if agree < 0.99:
+            raise AssertionError(f"lm_serve {name}: kernel and plain ids agree "
+                                 f"on only {agree:.4f} of queries at d = 2048")
+        if name != "mutable" and not (np.array_equal(got.ios, plain.ios)
+                                      and np.array_equal(got.hops, plain.hops)):
+            raise AssertionError(f"lm_serve {name}: kernel and plain ios or "
+                                 "hops differ at d = 2048")
+        if name == "resident":
+            resident = got
+        if name == "streamed":
+            for field in got._fields:
+                if not np.array_equal(getattr(got, field),
+                                      getattr(resident, field)):
+                    raise AssertionError(f"lm_serve: streamed {field} differ "
+                                         "from the resident search's")
+    if str(device).startswith("cuda"):
+        need = {"resident": ("page_scan", "pq_adc", "hamming"),
+                "streamed": ("page_scan_recs",), "mutable": ("l2_distance",)}
+        for name, kernels in need.items():
+            never = [k for k in kernels if not out[name]["launches"].get(k)]
+            if never:
+                raise AssertionError(f"lm_serve {name}: {never} never "
+                                     "launched at d = 2048")
+    return out
+
+
+def _lm_kernel_cases(s, index, q, extra) -> dict:
+    """Rows 1-5 of the kernel table at the retrieval's d = 2048 shapes, on
+    the index's own records, codes and LSH sample: each against its plain
+    version, timed beside its bound."""
+    import numpy as np
+
+    torch = s.torch
+    from repro_torch.core.delta import _pow2
+
+    data, cfg = index.data, index.cfg
+    dev = data.page_recs.device
+    rng = np.random.default_rng(s.seed + 7)
+    nq, b = len(q), cfg.io_batch
+    cap = cfg.resolve_capacity()
+    m_disk, rp = cfg.pq_subspaces, data.nbr_ids.shape[1]
+    pages = data.page_recs.shape[0]
+    ids = torch.as_tensor(rng.integers(0, pages, (nq, b)).astype(np.int32)).to(dev)
+    qt = torch.as_tensor(q).to(dev)
+    lut = torch.as_tensor(rng.random((nq, m_disk, 256)).astype(np.float32)).to(dev)
+    kw = dict(cap=cap, dim=cfg.dim, rp=rp, m=m_disk, adc=True, reps=20)
+    rows = {"page_scan": _page_scan_case(s, data.page_recs, ids, qt, lut, **kw),
+            "page_scan_recs": _page_scan_case(s, data.page_recs, ids, qt, lut,
+                                              staged=True, **kw)}
+    m_mem = data.mem_codes.shape[1]
+    nids = torch.as_tensor(rng.integers(
+        0, data.mem_codes.shape[0], (nq, b * rp))).to(dev)
+    lut_mem = torch.as_tensor(rng.random((nq, m_mem, 256)).astype(np.float32)).to(dev)
+    rows["pq_adc"] = _pq_adc_gather_case(s, data.mem_codes, nids, lut_mem, 20)
+    qcodes = torch.as_tensor(rng.integers(
+        -2**31, 2**31, (nq, data.lsh_codes.shape[1])).astype(np.int32)).to(dev)
+    rows["hamming"] = _hamming_topk_case(s, data.lsh_codes, qcodes,
+                                         cfg.lsh_entries)
+    # the delta scan's call: the inserted rows padded to a power of two
+    c_pad = _pow2(len(extra))
+    x = np.zeros((c_pad, cfg.dim), np.float32)
+    x[:len(extra)] = extra
+    keep = torch.zeros(c_pad, dtype=torch.bool, device=dev)
+    keep[:len(extra)] = True
+    rows["l2_distance"] = _l2_case(s, qt, torch.as_tensor(x).to(dev), 10,
+                                   keep=keep)
+    return rows
+
+
+# the lm_serve search each d = 2048 kernel row's launches come from
+LM_PATHS = {"page_scan": "resident", "pq_adc": "resident",
+            "hamming": "resident", "page_scan_recs": "streamed",
+            "l2_distance": "mutable"}
+
+
+def _lm_row(lm: dict, name: str) -> dict | None:
+    """A kernel's numbers at d = 2048 for the kernels line: its device ms
+    against its bound at the lm_serve retrieval's shapes and its launches in
+    that phase's counted 1,000-query search (None for a kernel off that
+    path)."""
+    if name not in LM_PATHS:
+        return None
+    r = lm["kernels"][name]
+    search = LM_PATHS[name]
+    return dict(
+        search=search, launches=lm["search"][search]["launches"].get(name, 0),
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        max_abs_err=r["max_abs_err"])
+
+
+def run_lm_serve(s: Smoke, *, device: str, seed: int, smoke_arch: bool = False,
+                 n_docs: int = N_LM_DOCS, n_queries: int = N_QUERIES) -> dict:
+    """The dense decoder at granite-3-2b's full CONFIG (``smoke_arch`` takes
+    SMOKE, for a CPU rehearsal) and the port's serving driver over indexes of
+    its mean token embeddings (d = 2048: HYBRID capacity 1, 16 member rows a
+    record). In order: the model's init; the LM on the card (``generate``
+    timed, a decode step profiled, prefill = decode, a 2-layer cut held to
+    the CPU); the corpus, index and two-collection database; the driver,
+    ``repro_torch.launch.serve.main``, over ``--index-dir``, ``--mutable``,
+    ``--memory-budget 0.25`` (its ids equal the resident run's) and
+    ``--db-dir --route :wiki,:notes --semantic-cache 0.98 --metrics-port 0
+    --obs-selfcheck --trace-out --http-port 0`` (every replayed prompt a
+    cache hit); then 1,000 queries through the kernels and the plain
+    versions, resident, streamed and mutable (1,000 inserted rows), and
+    kernel rows 1-5 at these shapes against their plain versions. Returns
+    the phase's numbers, with the kernel rows under ``kernels`` and each
+    driver run's launches under ``driver_launches``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import PageANNIndex, save_database
+    from repro_torch.models import transformer as tf
+
+    arch = get_arch(LM_ARCH, smoke=smoke_arch)
+    size = ["--smoke"] if smoke_arch else []
+    out: dict = {"arch": arch.name}
+    _sync(device)
+    t0 = time.perf_counter()
+    model = tf.init_params(arch, torch.Generator(device=device).manual_seed(seed),
+                           device=device)
+    _sync(device)
+    out["model"] = dict(
+        params=sum(p.numel() for p in model.parameters()),
+        param_bytes=tf.param_bytes(model), init_s=time.perf_counter() - t0,
+        layers=arch.num_layers, d_model=arch.d_model, d_ff=arch.d_ff,
+        heads=arch.num_heads, kv_heads=arch.num_kv_heads,
+        padded_vocab=arch.padded_vocab)
+    emit("lm_serve", stage="model", **out["model"])
+    docs = _token_means(model, n_docs, arch.vocab_size, seed + 10)
+    q = _token_means(model, n_queries, arch.vocab_size, seed + 11)
+    extra = _token_means(model, n_queries, arch.vocab_size, seed + 12)
+    out["lm"] = _lm_model_phase(model, arch, device=device, seed=seed)
+    emit("lm_serve", stage="lm", **out["lm"])
+    del model
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+    out["cut"] = _lm_cut_on_card_vs_cpu(arch, device=device, seed=seed)
+    emit("lm_serve", stage="cut", **out["cut"])
+
+    cfg = _lm_index_cfg(arch.d_model)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        t0 = time.perf_counter()
+        index = PageANNIndex.build(docs, cfg, device=device)
+        build_s = time.perf_counter() - t0
+        index.save(str(root / "idx.pageann"))
+        half = n_docs // 2
+        t0 = time.perf_counter()
+        colls = {"wiki": PageANNIndex.build(docs[:half], cfg, device=device),
+                 "notes": PageANNIndex.build(docs[half:], cfg, device=device)}
+        db_build_s = time.perf_counter() - t0
+        save_database(colls, str(root / "db"))
+        del colls
+        out["index"] = dict(
+            docs=n_docs, dim=cfg.dim, capacity=cfg.resolve_capacity(),
+            record_rows=int(index.data.page_recs.shape[1]),
+            pages=int(index.data.page_recs.shape[0]), build_s=build_s,
+            stats=dataclasses.asdict(index.stats),
+            db_collections={"wiki": half, "notes": n_docs - half},
+            db_build_s=db_build_s)
+        emit("lm_serve", stage="index", **out["index"])
+
+        idx_dir = str(root / "idx.pageann")
+        runs = {
+            "index": ["--index-dir", idx_dir],
+            "mutable": ["--index-dir", idx_dir, "--mutable"],
+            "budget": ["--index-dir", idx_dir, "--memory-budget",
+                       str(BUDGET)],
+            "db": ["--db-dir", str(root / "db"), "--route", ":wiki,:notes",
+                   "--semantic-cache", "0.98", "--metrics-port", "0",
+                   "--obs-selfcheck", "--trace-out", str(root / "trace.json"),
+                   "--http-port", "0"],
+        }
+        texts, out["driver_launches"], out["driver_s"] = {}, {}, {}
+        for label, argv in runs.items():
+            texts[label], launches, sec = _driver(size + argv, device=device,
+                                                  label=label)
+            out["driver_launches"][label] = {k: v for k, v in launches.items()
+                                             if v}
+            out["driver_s"][label] = sec
+        if _retrieved(texts["budget"]) != _retrieved(texts["index"]):
+            raise AssertionError("lm_serve: the driver's ids under a 0.25 "
+                                 "budget differ from the resident run's")
+        if "self-retrieval" not in texts["mutable"]:
+            raise AssertionError("lm_serve: the mutable run printed no "
+                                 "self-retrieval")
+        batch = 4                                  # the driver's default
+        if f"replay served {batch}/{batch} from cache" not in texts["db"]:
+            raise AssertionError("lm_serve: the replayed prompts were not all "
+                                 "semantic-cache hits")
+        if "obs selfcheck ok" not in texts["db"]:
+            raise AssertionError("lm_serve: no obs self-check line")
+        trace = json.loads((root / "trace.json").read_text())
+        if not trace.get("traceEvents"):
+            raise AssertionError("lm_serve: the trace holds no events")
+        if str(device).startswith("cuda"):
+            need = {"index": ("page_scan", "pq_adc", "hamming"),
+                    "mutable": ("l2_distance",), "budget": ("page_scan_recs",)}
+            for label, kernels in need.items():
+                never = [k for k in kernels
+                         if not out["driver_launches"][label].get(k)]
+                if never:
+                    raise AssertionError(f"lm_serve driver {label}: {never} "
+                                         "never launched")
+
+        out["search"] = _lm_searches(index, idx_dir, docs, q, extra,
+                                     device=device)
+        emit("lm_serve", stage="search", **out["search"])
+        if str(device).startswith("cuda"):
+            out["kernels"] = _lm_kernel_cases(s, index, q, extra)
+            for row in out["kernels"].values():
+                emit("lm_serve", stage="kernel", **row)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def filter_exprs(scores, *, full: bool) -> dict:
     """The predicates of the filter phase: numeric bounds at each
     selectivity (quantiles of the score column) and a tag-and-numeric
@@ -2541,6 +3044,8 @@ def main(argv=None) -> int:
     phase_build()
     phase_kernels(smoke, cfg_h, cfg_m, args.n, N_QUERIES)
     phase_sift1m(smoke, cfg_h, cfg_m)
+    torch.cuda.empty_cache()
+    lm = run_lm_serve(smoke, device="cuda", seed=args.seed)
     torch.cuda.empty_cache()
 
     # each path's launches, counted from 0 just before its run: the e2e
@@ -2609,6 +3114,9 @@ def main(argv=None) -> int:
             launches_adaptive=adaptive_launches.get(name, {}),
             launches_baselines=baseline_launches.get(name, 0),
             launches_sharded=sharded_launches.get(name, 0),
+            launches_lm_serve=sum(run.get(name, 0) for run in
+                                  lm["driver_launches"].values()),
+            lm_serve_d2048=_lm_row(lm, name),
             max_abs_err=smoke.err[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

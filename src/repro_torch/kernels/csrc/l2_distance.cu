@@ -20,25 +20,33 @@
 // to the matrix unit and kept d whole in VMEM. Here the product stays in full
 // float32 on the CUDA cores (TF32 tensor cores keep ~3 decimal digits, and the
 // port is held to the reference at 1e-5): a register-blocked SIMT product.
-// A block of 256 threads owns a 128 x 128 output tile (128 x 64 tiles ran
-// 10-13% slower on the H100) and walks d in slabs of kBK = 16. Each slab of
-// its 128 query rows and 128 vector rows is copied into shared memory by 16-byte cp.async (4-byte where
-// d % 4 != 0), three slabs in flight: the copy of slab s + 2 overlaps the
-// FMAs on slab s, behind one barrier a slab. The rows keep their k order in
-// shared memory, padded to 20 floats so that the float4 reads below hit 8
-// distinct 16-byte bank groups. Thread (ty, tx) holds 8 x 8
-// accumulators, rows ty + 16 i and columns tx + 16 j; per 4 k and each half
-// of its 8 query rows it reads those 4 rows and its vector rows as float4 (a
-// warp spans 4 query rows and 8 vector rows, so no two lanes' reads share a
-// bank unless they share the address) and does 16 FMAs per vector row;
-// reading all 8 query rows at once kept 16 more registers live and ran
-// about 10% slower on the H100. Thread t also sums the squares of staged
-// row t (one of the 128 + 128 rows) from the same slabs, so the norms cost
-// no read of device memory. Every output and norm is one fmaf chain over k = 0 .. d-1 in
-// order (zero padding past d adds exact zeros) and the epilogue is
-// (qq - 2 qx) + xx, so the bits do not depend on the tile shape, and a
-// self-match scores exactly 0. Edge tiles are zero-filled on the copy and
-// not stored, so any Q, N and d work without host padding.
+// A block of 256 threads owns a 128 x 64 output tile and walks d in slabs
+// of kBK = 16. Each slab of its 128 query rows and 64 vector rows is copied
+// into shared memory by 16-byte cp.async (4-byte where d % 4 != 0), three
+// slabs in flight: the copy of slab s + 2 overlaps the FMAs on slab s,
+// behind one barrier a slab. The rows keep their k order in shared memory,
+// padded to 20 floats so that the float4 reads below hit 8 distinct 16-byte
+// bank groups. Thread (ty, tx) holds 8 x 4 accumulators, rows ty + 16 i and
+// columns tx + 16 j; per 4 k and each half of its 8 query rows it reads
+// those 4 rows and its vector rows as float4 (a warp spans 4 query rows and
+// 8 vector rows, so no two lanes' reads share a bank unless they share the
+// address) and does 16 FMAs per vector row; reading all 8 query rows at once
+// kept 16 more registers live and ran about 10% slower on the H100. Thread
+// t < 192 also sums the squares of staged row t (one of the 128 + 64 rows)
+// from the same slabs, so the norms cost no read of device memory.
+//
+// The sum. Every output and norm is a sum of chunks of kChunk = 128 k: one
+// fmaf chain from 0 over the chunk's k in order (zero padding past d adds
+// exact zeros), each chunk then added to the running total in chunk order,
+// and the epilogue is (qq - 2 qx) + xx. So the bits do not depend on the
+// tile shape, a self-match scores exactly 0, and up to d = 128 the result
+// is the single chain's. One chain over all of d = 2048 (the LM's width)
+// put the expanded form 0.0178 off the plain version's on 1,000 x 1,024
+// vectors on the H100, past its 1e-6 (max|q|^2 + max|x|^2) = 0.0048; the
+// chunked sum stays inside it (tests/test_torch_cuda.py, d = 2048). The
+// totals cost 32 more registers a thread, which a 128 x 128 tile (8 x 8
+// accumulators) has no room for. Edge tiles are zero-filled on the copy
+// and not stored, so any Q, N and d work without host padding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,7 +54,7 @@
 namespace {
 
 constexpr int kBM = 128;      // query rows per block
-constexpr int kBN = 128;      // vector rows (output columns) per block
+constexpr int kBN = 64;       // vector rows (output columns) per block
 constexpr int kBK = 16;       // d per slab
 constexpr int kLd = kBK + 4;  // floats per staged row: 80 bytes
 constexpr int kStages = 3;    // slabs in shared memory at once
@@ -54,8 +62,9 @@ constexpr int kThreads = 256; // 16 x 16 threads
 constexpr int kTM = 8;        // query rows per thread
 constexpr int kTN = kBN / 16; // vector rows per thread
 constexpr int kRows = kBM + kBN;  // staged rows a slab: queries, vectors
+constexpr int kChunkSlabs = 8;    // slabs a chunk of the sum: kChunk = 128 k
 constexpr size_t kSmemBytes = size_t{kStages} * kRows * kLd * sizeof(float);
-static_assert(kRows == kThreads, "thread t sums the squares of staged row t");
+static_assert(kRows <= kThreads, "thread t sums the squares of staged row t");
 static_assert(kRows * kBK % (4 * kThreads) == 0, "whole rounds of copies");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -151,12 +160,25 @@ __global__ void __launch_bounds__(kThreads, 2) l2_distance_kernel(
     }
   };
 
-  float acc[kTM][kTN];
+  // acc: the current chunk's chains; tot: the finished chunks' sum
+  float acc[kTM][kTN], tot[kTM][kTN];
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;  // the squared norm of staged row t
+    for (int j = 0; j < kTN; ++j) acc[i][j] = tot[i][j] = 0.f;
+  float norm = 0.f, norm_tot = 0.f;  // the squared norm of staged row t
+  // adds the chunk to the totals, in chunk order, and starts the next one
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        tot[i][j] += acc[i][j];
+        acc[i][j] = 0.f;
+      }
+    norm_tot += norm;
+    norm = 0.f;
+  };
 
   const int slabs = (d + kBK - 1) / kBK;
 #pragma unroll
@@ -210,9 +232,10 @@ __global__ void __launch_bounds__(kThreads, 2) l2_distance_kernel(
         }
       }
     }
+    if ((s + 1) % kChunkSlabs == 0 || s + 1 == slabs) fold();
   }
   cp_async_wait<0>();
-  norm_s[t] = norm;
+  if (t < kRows) norm_s[t] = norm_tot;
   __syncthreads();
 
   const float kInf = __int_as_float(0x7f800000);  // +inf
@@ -234,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, 2) l2_distance_kernel(
     for (int j = 0; j < kTN; ++j) {
       const int c = col0 + tx + 16 * j;
       // (qq - 2 qx) + xx, the reference's order; 2 qx is exact
-      if (c < nx) o[c] = kept[j] ? (qq - 2.f * acc[i][j]) + xn[j] : kInf;
+      if (c < nx) o[c] = kept[j] ? (qq - 2.f * tot[i][j]) + xn[j] : kInf;
     }
   }
 }

@@ -3,12 +3,14 @@
 Replaces ``src/repro/kernels/l2dist.py`` (``l2_distance``). The kernel is
 ``csrc/l2_distance.cu``: bound by operations on the H100 at the delta
 scan's shapes (2 Q N d flops against Q N output floats). A register-blocked
-float32 product on the CUDA cores (a 128 x 128 output tile a block of 256
-threads, 8 x 8 accumulators a thread, slabs of q and x staged by 16-byte
+float32 product on the CUDA cores (a 128 x 64 output tile a block of 256
+threads, 8 x 4 accumulators a thread, slabs of q and x staged by 16-byte
 ``cp.async`` three deep) with both norms and the ``(|q|^2 - 2 q.x) + |x|^2``
 epilogue in the same kernel, which also writes ``+inf`` where the optional
 ``keep`` mask is false; no TF32, so the port keeps the reference's
-precision.
+precision. Products and norms are summed in chunks of 128 of d, the chunks
+added in order, so the rounding stays within the expanded form's tolerance
+at d = 2048 (one chain over all of d did not).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE = 128                # query rows (and vector rows) a block
+TILE = 128                # query rows a block (and 64 vector rows)
 MAX_QUERY_TILES = 65535   # the grid's y extent: Q <= 65535 * TILE
 
 

@@ -1,2 +1,3 @@
-"""Launch-time helpers of the port: the counterpart of ``repro.launch``
-(its device mesh, ``launch.mesh``)."""
+"""Launch-time helpers and drivers of the port: the counterpart of
+``repro.launch`` (its device mesh, ``launch.mesh``, and the serving
+driver, ``launch.serve``)."""

@@ -867,3 +867,107 @@ def test_mesh_over_distinct_cards(card_store, card_index):
     got = index.search(qp, k=10, mesh=make_mesh((1, 2), ("data", "model")))
     for field in want._fields:
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+# ----------------------------------------------- the LM's width, d = 2048
+# granite-3-2b's d_model: HYBRID capacity 1, a member spans 16 record rows,
+# M = 8 code rows (examples/serve_rag.py's config), 48 neighbour columns
+LM_PAGES, LM_CAP, LM_D, LM_RP, LM_M, LM_B = 40, 1, 2048, 48, 8, 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 64, 1000])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("source", ["ids", "staged"])
+@pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
+def test_page_scans_match_plain_at_d2048(cuda, adc, source, masked, nq):
+    """Every page-scan variant at the LM's width and capacity 1 against its
+    plain version; staged = by page id bit for bit, members-only = ADC."""
+    recs, ids, q, lut = (torch.as_tensor(a).to(cuda) for a in page_inputs(
+        LM_PAGES, LM_CAP, LM_D, LM_RP, LM_M, LM_B, nq=nq))
+    assert recs.shape[1] == 24
+    mask = None
+    if masked:
+        rng = np.random.default_rng(nq)
+        mask = torch.as_tensor((rng.random((nq, LM_B, LM_CAP)) < 0.5)
+                               .astype(np.float32)).to(cuda)
+    kw = dict(capacity=LM_CAP, dim=LM_D, rp=LM_RP, compute_adc=adc,
+              member_mask=mask)
+    staged = recs[ids.long()].contiguous()
+
+    def run(impl=None, adc_=adc):
+        k = dict(kw, compute_adc=adc_)
+        if source == "staged":
+            return ops.page_scan_recs(staged, q, lut, impl=impl, **k)
+        return ops.page_scan(recs, ids, q, lut, impl=impl, **k)
+
+    name = ("page_scan" + ("_recs" if source == "staged" else "")
+            + ("" if adc else "_members") + ("_masked" if masked else ""))
+    before = ops.launch_counts()[name]
+    got = run()
+    assert ops.launch_counts()[name] == before + 1
+    want = run("plain")
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    if adc:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+    by_id = ops.page_scan(recs, ids, q, lut, **kw)
+    assert torch.equal(got[0], by_id[0])
+    assert torch.equal(run(adc_=not adc)[0], got[0])
+
+
+@pytest.mark.cuda
+def test_pq_adc_hamming_l2_match_plain_at_d2048(cuda):
+    """The retrieval's other kernels at the LM's shapes: the HYBRID re-score
+    (M = 16 in-memory codes, b x Rp rows a query), the routing over a
+    512-row LSH sample (T = 8), the delta scan of 1,000 inserted rows at
+    d = 2048 (padded to 1,024, keep mask)."""
+    rng = np.random.default_rng(2048)
+    nq = 1000
+    table = torch.as_tensor(rng.integers(0, 256, (2000, 16)).astype(np.uint8)).to(cuda)
+    ids = torch.as_tensor(rng.integers(0, 2000, (nq, LM_B * LM_RP))).to(cuda)
+    lut = torch.as_tensor(rng.random((nq, 16, 256)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(ops.pq_adc_gather(table, ids, lut),
+                               ops.pq_adc_gather(table, ids, lut, impl="plain"),
+                               rtol=1e-5, atol=1e-4)
+    codes = torch.as_tensor(_words(rng, 512, 2)).to(cuda)
+    qcodes = torch.as_tensor(_words(rng, nq, 2)).to(cuda)
+    got = ops.hamming_topk(codes, qcodes, 8)
+    want = ops.hamming_topk(codes, qcodes, 8, impl="plain")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    q, x = (torch.as_tensor(a).to(cuda) for a in l2_inputs(nq, 1024, LM_D))
+    keep = torch.arange(1024, device=cuda) < 1000
+    dist = ops.l2_distance(q, x, keep)
+    torch.testing.assert_close(dist, ops.l2_distance(q, x, keep, impl="plain"),
+                               rtol=1e-5, atol=l2_atol(q.cpu(), x.cpu()))
+    assert float(dist[0, 0]) == 0.0
+    assert torch.isinf(dist[:, 1000:]).all()
+
+
+@pytest.mark.cuda
+def test_two_layer_full_width_decode_on_the_card_matches_the_cpu(cuda):
+    """granite-3-2b's full width cut to 2 layers, the same weights on the
+    card and the CPU: 12 decode steps' logits within 1e-2 and the greedy
+    tokens equal. cuBLAS and the CPU's BLAS sum in other orders; where k or
+    v straddles a bf16 rounding boundary the KV cache element lands one
+    bf16 step apart (0.5% of them on the H100), which moved logits of
+    magnitude ~5 by up to 0.0033 (by 4.9e-6 with a float32 cache,
+    tools/lm_cut_card_vs_cpu.py)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tf
+
+    cut = dataclasses.replace(get_arch("granite-3-2b"), num_layers=2)
+    cpu = tf.init_params(cut, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cut.vocab_size, (2, 12)), dtype=torch.int32)
+    caches = [tf.init_cache(cut, 2, 12, device=d) for d in ("cpu", cuda)]
+    for t in range(12):
+        want, _ = tf.decode_step(cpu, caches[0], toks[:, t], t, cut)
+        got, _ = tf.decode_step(card, caches[1], toks[:, t].to(cuda), t, cut)
+        got = got.cpu()[:, :cut.vocab_size]
+        want = want[:, :cut.vocab_size]
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
