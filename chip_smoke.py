@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 12-15 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 15-18 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -23,7 +23,7 @@ version. Phases, one JSON line each:
             ``generate`` (batch 8, 32 prompt tokens prefilled token by
             token, 16 greedy) timed, one decode step profiled (launches,
             idle share) against its weights-read bound, prefill = decode
-            within 2e-2, a 2-layer cut held to the CPU; 2,000 documents
+            within 2e-2, a 2-layer cut held to the CPU; 1,000 documents
             (mean token embeddings, d = 2048: HYBRID capacity 1) in a
             PageANN index and a two-collection database; the port's serving
             driver ``repro_torch.launch.serve.main`` over ``--index-dir``,
@@ -34,6 +34,22 @@ version. Phases, one JSON line each:
             and the plain versions, resident, streamed and mutable (1,000
             inserts), with recall@10; ``page_scan``, ``page_scan_recs``,
             ``pq_adc``, ``hamming`` and ``l2_distance`` at these shapes
+  lm_families  the MoE, SSM, hybrid, audio and VLM families at their
+            CONFIG's full width, one model at a time: mamba2-370m (48
+            layers), recurrentgemma-9b (38), hubert-xlarge (48, encoder),
+            qwen2-vl-72b (8 of 80, M-RoPE positions on every step),
+            arctic-480b (1 of 35, 128 experts, dense residual) and
+            kimi-k2-1t-a32b (1 of 61, 384 experts, bf16 parameters), each
+            depth cut printed under ``reduced``: ``generate`` timed and a
+            step profiled against its weights-read bound (the encoder: a
+            forward of 8 x 256 frames), prefill = decode within 2e-2 for
+            the SSM and the hybrid; each family's 2-layer cut (the hybrid:
+            one block; the MoE: 8 experts) held card against CPU; then
+            recurrentgemma-9b's driver over 1,000 documents at d = 4096
+            (HYBRID, capacity 1): ``--index-dir`` and ``--memory-budget
+            0.25`` (equal ids), 1,000 queries through the kernels and the
+            plain versions, resident and streamed, and the on-path
+            kernels at these shapes
   e2e       ``PageANNIndex.build`` (with a seeded metadata schema) ->
             ``search`` -> ``recall_at_k`` in HYBRID (the main path, 10,000
             vectors) and MEM_ALL (members-only page scan, 5,000 vectors:
@@ -111,9 +127,11 @@ from the DiskANN search (its exact rerank, where it is timed at the
 baseline's shapes, (N, 1, d) pages), the distances alone from their own
 entry point ``ops.hamming``, driven once in the kernels phase; each
 row's ``launches_sharded`` from the sharded phase's counted host fan-out,
-``launches_lm_serve`` from the lm_serve phase's four driver runs, and
+``launches_lm_serve`` from the lm_serve phase's four driver runs,
 ``lm_serve_d2048`` the kernel's time, bound and launches at that phase's
-d = 2048 shapes (rows 1-5).
+d = 2048 shapes (rows 1-5), and ``launches_lm_families`` /
+``lm_families_d4096`` the same for the lm_families phase's two driver runs
+and its d = 4096 searches (rows 1-4).
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero without the last line. It also exits non-zero
@@ -2510,9 +2528,11 @@ def run_sharded(ctx: dict, pageann: dict, cfg, *, device: str, seed: int,
 
 # ------------------------------------------------------------------ lm_serve
 LM_ARCH = "granite-3-2b"     # the reference driver's default arch, full width
-# the phase's corpus: examples/serve_rag.py's 2,000 documents; the database
-# holds the same documents as two collections of 1,000
-N_LM_DOCS = 2000
+# the phase's corpus: half of examples/serve_rag.py's 2,000 documents (cut
+# so that the lm_families phase fits the smoke's time; the builds are 99%
+# host-side prune); the database holds the same documents as two
+# collections of 500
+N_LM_DOCS = 1000
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 32, 16   # the timed generate
 # the 2-layer full-width cut's logits (|logit| up to ~5), card against CPU:
 # cuBLAS and the CPU's BLAS sum in other orders, and where k or v straddles
@@ -2535,14 +2555,14 @@ def _lm_index_cfg(dim: int):
                          memory_mode=MemoryMode.HYBRID)
 
 
-def _token_means(model, n: int, vocab: int, seed: int):
-    """``n`` mean embeddings of 16 random tokens each (float32, host), as
-    ``examples/serve_rag.py`` makes its documents and the driver its
-    queries."""
+def _token_means(model, n: int, vocab: int, seed: int, length: int = 16):
+    """``n`` mean embeddings of ``length`` random tokens each (float32,
+    host), as ``examples/serve_rag.py`` makes its documents and the driver
+    its queries."""
     import numpy as np
     import torch
 
-    tokens = np.random.default_rng(seed).integers(0, vocab, (n, 16))
+    tokens = np.random.default_rng(seed).integers(0, vocab, (n, length))
     with torch.no_grad():
         emb = model.embed[torch.as_tensor(tokens, device=model.device)]
         return emb.mean(dim=1).to(torch.float32).cpu().numpy()
@@ -2555,9 +2575,22 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _positions3(arch, B: int, t0: int, T: int, device):
+    """M-RoPE positions (3, B, T) for ``T`` tokens from position ``t0``, as
+    a VLM lays out a 4-wide patch grid: the temporal stream counts tokens,
+    the height and width streams walk the grid. None without M-RoPE."""
+    if not arch.mrope:
+        return None
+    import torch
+
+    t = torch.arange(t0, t0 + T, device=device, dtype=torch.int32)
+    return torch.stack([t, t // 4, t % 4])[:, None, :].expand(3, B, T)
+
+
 def _lm_decode(model, arch, prompts, steps: int):
-    """Teacher-forced decode of ``prompts`` then ``steps`` greedy tokens;
-    returns every step's logits (B, V_pad) on the host and the tokens."""
+    """Teacher-forced decode of ``prompts`` then ``steps`` greedy tokens
+    (M-RoPE positions passed where the config has them); returns every
+    step's logits (B, V_pad) on the host and the tokens."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -2567,7 +2600,8 @@ def _lm_decode(model, arch, prompts, steps: int):
     logits, out, toks = [], [], None
     for t in range(T + steps):
         tok = prompts[:, t] if t < T else toks
-        lg, cache = tf.decode_step(model, cache, tok, t, arch)
+        lg, cache = tf.decode_step(model, cache, tok, t, arch,
+                                   _positions3(arch, B, t, 1, model.device))
         logits.append(lg.cpu())
         toks = torch.argmax(lg[:, :arch.vocab_size], -1).to(torch.int32)
         if t >= T - 1:
@@ -2575,16 +2609,84 @@ def _lm_decode(model, arch, prompts, steps: int):
     return logits, torch.stack(out, 1)
 
 
-def _lm_model_phase(model, arch, *, device, seed: int) -> dict:
-    """The LM on the card: (i) ``generate`` timed (prefill token by token,
-    then greedy steps), a decode step profiled for its launches and the
-    device's idle share, against the weights-read bound; (iii) the last
-    prefill step's logits against ``forward_train``'s at the reference
-    test's 2e-2."""
-    import numpy as np
+def _generate(model, arch, prompts, n_gen: int):
+    """The driver's ``generate`` (``repro_torch.launch.serve``); for an
+    M-RoPE config the same loop with its positions passed to every step."""
     import torch
 
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    if not arch.mrope:
+        return serve.generate(model, arch, prompts, n_gen)
+    B, T = prompts.shape
+    cache = tf.init_cache(arch, B, T + n_gen, device=model.device)
+    for t in range(T):
+        logits, cache = tf.decode_step(
+            model, cache, prompts[:, t], t, arch,
+            _positions3(arch, B, t, 1, model.device))
+    out = [torch.argmax(logits[:, :arch.vocab_size], -1).to(torch.int32)]
+    for t in range(T, T + n_gen - 1):
+        logits, cache = tf.decode_step(
+            model, cache, out[-1], t, arch,
+            _positions3(arch, B, t, 1, model.device))
+        out.append(torch.argmax(logits[:, :arch.vocab_size], -1)
+                   .to(torch.int32))
+    return torch.stack(out, dim=1)
+
+
+def _profile_step(fn, wall_ms: float) -> dict:
+    """``fn()`` once under the profiler: the device's busy ms, its kernel
+    launches, its idle share against ``wall_ms`` and the eight kernels that
+    took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name: dict = {}
+    for e in kern:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(
+        device_busy_ms=busy if kern else None,
+        device_launches=len(kern),
+        device_idle_share=(1.0 - busy / wall_ms) if kern else None,
+        top=[dict(name=n[:90], device_ms=ms, count=c)
+             for n, (ms, c) in top])
+
+
+def _step_bytes(model) -> int:
+    """The bytes a decode step must read: every parameter but the input
+    embedding table (a step reads B of its rows), which is also the output
+    head where the embeddings are tied. For an MoE that is every expert:
+    the reference's dispatch computes all of them."""
+    from repro_torch.models import transformer as tf
+
+    skip = model.embed if (model.embed is not None
+                           and model.unembed is not None) else None
+    return tf.param_bytes(model) - (
+        skip.numel() * skip.element_size() if skip is not None else 0)
+
+
+def _lm_model_phase(model, arch, *, device, seed: int,
+                    prefill_check: bool = True, label: str = "lm_serve"
+                    ) -> dict:
+    """The LM on the card: (i) ``generate`` timed (prefill token by token,
+    then greedy steps), a decode step profiled for its launches and the
+    device's idle share, against the weights-read bound; (iii) with
+    ``prefill_check``, the last prefill step's logits against
+    ``forward_train``'s at the reference test's 2e-2."""
+    import numpy as np
+    import torch
+
     from repro_torch.models import transformer as tf
 
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -2594,11 +2696,11 @@ def _lm_model_phase(model, arch, *, device, seed: int) -> dict:
     def timed(n_gen):
         _sync(device)
         t0 = time.perf_counter()
-        out = serve.generate(model, arch, prompts, n_gen)
+        out = _generate(model, arch, prompts, n_gen)
         _sync(device)
         return out, time.perf_counter() - t0
 
-    serve.generate(model, arch, prompts, 2)       # warm-up: cuBLAS, allocator
+    _generate(model, arch, prompts, 2)            # warm-up: cuBLAS, allocator
     walls16, walls1 = [], []
     for _ in range(2):                            # in turns
         out, w = timed(LM_GEN)
@@ -2607,54 +2709,40 @@ def _lm_model_phase(model, arch, *, device, seed: int) -> dict:
     t16, t1 = float(np.median(walls16)), float(np.median(walls1))
     if tuple(out.shape) != (LM_BATCH, LM_GEN) or not (
             (out >= 0) & (out < arch.vocab_size)).all():
-        raise AssertionError(f"lm_serve: generate gave {tuple(out.shape)} "
-                             "tokens or tokens outside the vocabulary")
+        raise AssertionError(f"{label}: {arch.name}: generate gave "
+                             f"{tuple(out.shape)} tokens or tokens outside "
+                             "the vocabulary")
     decode_ms = (t16 - t1) * 1e3 / (LM_GEN - 1)
 
-    # one decode step after a prefill, under the profiler
-    logits, _ = _lm_decode(model, arch, prompts, 0)
-    last_prefill = logits[-1]
     profile = None
     if str(device).startswith("cuda"):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
         cache = tf.init_cache(arch, LM_BATCH, LM_PROMPT + 1, device=device)
         for t in range(LM_PROMPT):
-            tf.decode_step(model, cache, prompts[:, t], t, arch)
+            tf.decode_step(model, cache, prompts[:, t], t, arch,
+                           _positions3(arch, LM_BATCH, t, 1, device))
         tok = prompts[:, -1]
-        _sync(device)
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            tf.decode_step(model, cache, tok, LM_PROMPT, arch)
-            _sync(device)
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        by_name: dict = {}
-        for e in kern:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        profile = dict(
-            device_busy_ms=busy if kern else None,
-            device_launches=len(kern),
-            device_idle_share=(1.0 - busy / decode_ms) if kern else None,
-            top=[dict(name=n[:90], device_ms=ms, count=c)
-                 for n, (ms, c) in top])
+        p3 = _positions3(arch, LM_BATCH, LM_PROMPT, 1, device)
+        profile = _profile_step(
+            lambda: tf.decode_step(model, cache, tok, LM_PROMPT, arch, p3),
+            decode_ms)
 
-    # (iii) prefill = token-by-token decode at full width
-    with torch.no_grad():
-        full, _ = tf.forward_train(model, {"tokens": prompts}, arch)
-    full_last = full[:, -1, :arch.vocab_size].cpu()
-    dec_last = last_prefill[:, :arch.vocab_size]
-    prefill_diff = float((full_last - dec_last).abs().max())
-    torch.testing.assert_close(full_last, dec_last, rtol=LM_PREFILL_TOL,
-                               atol=LM_PREFILL_TOL)
+    prefill_diff = None
+    if prefill_check:
+        # (iii) prefill = token-by-token decode at full width
+        logits, _ = _lm_decode(model, arch, prompts, 0)
+        batch = {"tokens": prompts}
+        if arch.mrope:
+            batch["positions3"] = _positions3(arch, LM_BATCH, 0, LM_PROMPT,
+                                              device)
+        with torch.no_grad():
+            full, _ = tf.forward_train(model, batch, arch)
+        full_last = full[:, -1, :arch.vocab_size].float().cpu()
+        dec_last = logits[-1][:, :arch.vocab_size].float()
+        prefill_diff = float((full_last - dec_last).abs().max())
+        torch.testing.assert_close(full_last, dec_last, rtol=LM_PREFILL_TOL,
+                                   atol=LM_PREFILL_TOL)
 
-    layer_bytes = sum(p.numel() * p.element_size()
-                      for p in model.layers.parameters())
-    unembed = model.unembed if model.unembed is not None else model.embed
-    step_bytes = layer_bytes + unembed.numel() * unembed.element_size()
+    step_bytes = _step_bytes(model)
     return dict(
         batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
         generate_s_runs=walls16, prefill_s_runs=walls1,
@@ -2668,39 +2756,8 @@ def _lm_model_phase(model, arch, *, device, seed: int) -> dict:
     )
 
 
-def _lm_cut_on_card_vs_cpu(arch, *, device, seed: int) -> dict:
-    """(ii) The full-width config cut to 2 layers, the same weights (a CPU
-    generator) on the card and on the CPU: every step's logits within
-    LM_LOGIT_TOL, the greedy tokens equal."""
-    import copy
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from repro_torch.models import transformer as tf
-
-    cut = dataclasses.replace(arch, num_layers=2)
-    cpu = tf.init_params(cut, torch.Generator().manual_seed(seed), device="cpu")
-    card = copy.deepcopy(cpu).to(device)
-    prompts = torch.as_tensor(np.random.default_rng(seed + 3).integers(
-        0, cut.vocab_size, (2, 8)), dtype=torch.int32)
-    got, got_tok = _lm_decode(card, cut, prompts.to(device), 8)
-    want, want_tok = _lm_decode(cpu, cut, prompts, 8)
-    diff = 0.0
-    for g, w in zip(got, want):
-        g, w = g[:, :cut.vocab_size], w[:, :cut.vocab_size]
-        torch.testing.assert_close(g, w, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL)
-        diff = max(diff, float((g - w).abs().max()))
-    if not torch.equal(got_tok, want_tok):
-        raise AssertionError("lm_serve: the card's greedy tokens differ from "
-                             "the CPU's on the 2-layer cut")
-    return dict(layers=2, param_bytes=tf.param_bytes(cpu),
-                steps=len(got), logits_max_abs_diff=diff, tol=LM_LOGIT_TOL,
-                tokens_equal=True)
-
-
-def _driver(argv, *, device, label: str) -> tuple[str, dict, float]:
+def _driver(argv, *, device, label: str, phase: str = "lm_serve"
+            ) -> tuple[str, dict, float]:
     """``repro_torch.launch.serve.main(argv)`` with its output captured and
     echoed as one phase line; returns (output, launches, seconds). A
     ``SystemExit`` (a failed self-retrieval or self-check) fails the phase."""
@@ -2717,10 +2774,10 @@ def _driver(argv, *, device, label: str) -> tuple[str, dict, float]:
         with contextlib.redirect_stdout(buf):
             serve.main(argv, device=device)
     except SystemExit as e:
-        raise AssertionError(f"lm_serve {label}: the driver exited: {e}")
+        raise AssertionError(f"{phase} {label}: the driver exited: {e}")
     seconds = time.perf_counter() - t0
     launches = ops.launch_counts()
-    emit("lm_serve", stage="driver", run=label, argv=argv, seconds=seconds,
+    emit(phase, stage="driver", run=label, argv=argv, seconds=seconds,
          launches={k: v for k, v in launches.items() if v},
          output=buf.getvalue().splitlines())
     return buf.getvalue(), launches, seconds
@@ -2731,10 +2788,12 @@ def _retrieved(text: str) -> str:
     return text.split("retrieved ids per prompt:\n")[1].split("\ngenerated ")[0]
 
 
-def _lm_searches(index, directory, docs, q, extra, *, device) -> dict:
-    """The d = 2048 retrieval through the kernels and the plain versions:
-    resident, streamed at BUDGET and a MutableIndex with ``extra`` inserted;
-    ids equal for >= 99% of queries, ios and hops exactly; recall@10 against
+def _lm_searches(index, directory, docs, q, extra, *, device,
+                 label: str = "lm_serve") -> dict:
+    """The LM-width retrieval through the kernels and the plain versions:
+    resident, streamed at BUDGET and (unless ``extra`` is None) a
+    MutableIndex with ``extra`` inserted; ids equal for >= 99% of queries,
+    ios and hops exactly, streamed = resident exactly; recall@10 against
     brute force printed (no floor). Returns each search's launches."""
     import numpy as np
 
@@ -2744,14 +2803,16 @@ def _lm_searches(index, directory, docs, q, extra, *, device) -> dict:
 
     streamed = PageANNIndex.load(directory, device=device,
                                  memory_budget=BUDGET)
-    mutable = MutableIndex(index, auto_compact=False)
-    mutable.insert(extra)
     truth = brute_force_knn(docs, q, 10)
-    truth_mut = brute_force_knn(np.concatenate([docs, extra]), q, 10)
+    searches = [("resident", index, truth), ("streamed", streamed, truth)]
+    if extra is not None:
+        mutable = MutableIndex(index, auto_compact=False)
+        mutable.insert(extra)
+        truth_mut = brute_force_knn(np.concatenate([docs, extra]), q, 10)
+        searches.append(("mutable", mutable, truth_mut))
+    dim = index.cfg.dim
     out, resident = {}, None
-    for name, idx, want in (("resident", index, truth),
-                            ("streamed", streamed, truth),
-                            ("mutable", mutable, truth_mut)):
+    for name, idx, want in searches:
         idx.search(q, k=10)                       # warm-up
         ops.reset_launch_counts()
         _sync(device)
@@ -2771,35 +2832,36 @@ def _lm_searches(index, directory, docs, q, extra, *, device) -> dict:
             launches={k: v for k, v in launches.items() if v})
         out[name] = row
         if agree < 0.99:
-            raise AssertionError(f"lm_serve {name}: kernel and plain ids agree "
-                                 f"on only {agree:.4f} of queries at d = 2048")
+            raise AssertionError(f"{label} {name}: kernel and plain ids agree "
+                                 f"on only {agree:.4f} of queries at d = {dim}")
         if name != "mutable" and not (np.array_equal(got.ios, plain.ios)
                                       and np.array_equal(got.hops, plain.hops)):
-            raise AssertionError(f"lm_serve {name}: kernel and plain ios or "
-                                 "hops differ at d = 2048")
+            raise AssertionError(f"{label} {name}: kernel and plain ios or "
+                                 f"hops differ at d = {dim}")
         if name == "resident":
             resident = got
         if name == "streamed":
             for field in got._fields:
                 if not np.array_equal(getattr(got, field),
                                       getattr(resident, field)):
-                    raise AssertionError(f"lm_serve: streamed {field} differ "
+                    raise AssertionError(f"{label}: streamed {field} differ "
                                          "from the resident search's")
     if str(device).startswith("cuda"):
         need = {"resident": ("page_scan", "pq_adc", "hamming"),
                 "streamed": ("page_scan_recs",), "mutable": ("l2_distance",)}
-        for name, kernels in need.items():
-            never = [k for k in kernels if not out[name]["launches"].get(k)]
+        for name in out:
+            never = [k for k in need[name] if not out[name]["launches"].get(k)]
             if never:
-                raise AssertionError(f"lm_serve {name}: {never} never "
-                                     "launched at d = 2048")
+                raise AssertionError(f"{label} {name}: {never} never "
+                                     f"launched at d = {dim}")
     return out
 
 
 def _lm_kernel_cases(s, index, q, extra) -> dict:
-    """Rows 1-5 of the kernel table at the retrieval's d = 2048 shapes, on
+    """Rows 1-5 of the kernel table at the retrieval's LM-width shapes, on
     the index's own records, codes and LSH sample: each against its plain
-    version, timed beside its bound."""
+    version, timed beside its bound (``l2_distance``, the delta scan, only
+    when ``extra`` rows were inserted)."""
     import numpy as np
 
     torch = s.torch
@@ -2828,6 +2890,8 @@ def _lm_kernel_cases(s, index, q, extra) -> dict:
         -2**31, 2**31, (nq, data.lsh_codes.shape[1])).astype(np.int32)).to(dev)
     rows["hamming"] = _hamming_topk_case(s, data.lsh_codes, qcodes,
                                          cfg.lsh_entries)
+    if extra is None:
+        return rows
     # the delta scan's call: the inserted rows padded to a power of two
     c_pad = _pow2(len(extra))
     x = np.zeros((c_pad, cfg.dim), np.float32)
@@ -2910,7 +2974,8 @@ def run_lm_serve(s: Smoke, *, device: str, seed: int, smoke_arch: bool = False,
     del model
     if str(device).startswith("cuda"):
         torch.cuda.empty_cache()
-    out["cut"] = _lm_cut_on_card_vs_cpu(arch, device=device, seed=seed)
+    out["cut"] = _family_cut(LM_ARCH, device=device, seed=seed,
+                             smoke=smoke_arch)
     emit("lm_serve", stage="cut", **out["cut"])
 
     cfg = _lm_index_cfg(arch.d_model)
@@ -2992,6 +3057,302 @@ def run_lm_serve(s: Smoke, *, device: str, seed: int, smoke_arch: bool = False,
     return out
 
 
+# --------------------------------------------------------------- lm_families
+# the other families at their CONFIG's full width (d_model, heads, d_ff,
+# experts, ssm_state, rnn_width, window, vocab); depth cut only where 80 GB
+# forces it: qwen2-vl-72b's 80 layers are 291 GB in f32 (8 layers: 38.1
+# GB), one arctic-480b layer 56.3 GB in f32 and one kimi-k2 layer 38.8 GB
+# in bf16 (all its experts: the reference's dispatch computes every one)
+FAMILY_DEPTH = {"mamba2-370m": None, "recurrentgemma-9b": None,
+                "hubert-xlarge": None, "qwen2-vl-72b": 8,
+                "arctic-480b": 1, "kimi-k2-1t-a32b": 1}
+FAMILY_PREFILL = ("mamba2-370m", "recurrentgemma-9b")
+ENC_BATCH, ENC_FRAMES = 8, 256        # hubert-xlarge's frame batch
+# the card-against-CPU cut of each family: 2 layers (the hybrid: one
+# (rec, rec, attn) block) at full width. Two arctic layers are 107 GB in
+# f32, more than the card or the host holds, so the MoE cut keeps 8 of its
+# 128 experts (top-2, dense residual; 10.3 GB)
+FAMILY_CUTS = ("mamba2-370m", "recurrentgemma-9b", "hubert-xlarge",
+               "qwen2-vl-72b", "arctic-480b")
+CUT_EXPERTS = 8
+# recurrentgemma-9b retrieves through the driver at its d_model, 4,096
+D4096_ARCH = "recurrentgemma-9b"
+N_D4096_DOCS = 1000
+D4096_TOKENS = 32                     # tokens a document's mean embeds
+D4096_PATHS = {"page_scan": "resident", "pq_adc": "resident",
+               "hamming": "resident", "page_scan_recs": "streamed"}
+
+
+def _family_arch(name: str, smoke: bool = False):
+    """``name``'s full CONFIG with its depth cut (FAMILY_DEPTH), and the
+    cuts as {field: [kept, full]}; ``smoke`` takes SMOKE, uncut."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    full = get_arch(name, smoke=smoke)
+    depth = FAMILY_DEPTH[name]
+    if depth is None or smoke:
+        return full, {}
+    return (dataclasses.replace(full, num_layers=depth),
+            {"num_layers": [depth, full.num_layers]})
+
+
+def _family_model(name: str, *, device, seed: int, smoke: bool = False
+                  ) -> dict:
+    """One family at full width on the card: init, then (decoders) the LM
+    phase (``generate`` timed, a step profiled against its weights-read
+    bound, prefill = decode for the SSM and the hybrid) or (the encoder)
+    ``forward_train`` on a frame batch, timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import frontend as fe
+    from repro_torch.models import transformer as tf
+
+    arch, reduced = _family_arch(name, smoke)
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    t0 = time.perf_counter()
+    model = tf.init_params(arch, torch.Generator(device=device)
+                           .manual_seed(seed), device=device)
+    _sync(device)
+    out = dict(arch=name, family=arch.family, reduced=reduced,
+               layers=arch.num_layers, d_model=arch.d_model,
+               heads=arch.num_heads, kv_heads=arch.num_kv_heads,
+               d_ff=arch.d_ff, experts=arch.num_experts,
+               experts_per_token=arch.experts_per_token,
+               ssm_state=arch.ssm_state, rnn_width=arch.rnn_width,
+               window=arch.window, padded_vocab=arch.padded_vocab,
+               param_dtype=arch.param_dtype,
+               activation_dtype=arch.activation_dtype,
+               param_count=arch.param_count(),
+               params=sum(p.numel() for p in model.parameters()),
+               param_bytes=tf.param_bytes(model),
+               init_s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9
+               if str(device).startswith("cuda") else None)
+    if arch.is_decoder:
+        out["lm"] = _lm_model_phase(model, arch, device=device, seed=seed,
+                                    prefill_check=name in FAMILY_PREFILL,
+                                    label="lm_families")
+    else:
+        batch = fe.make_train_batch(arch, ENC_BATCH, ENC_FRAMES,
+                                    torch.Generator(device=device)
+                                    .manual_seed(seed + 1))
+        walls = []
+        for _ in range(3):
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, _ = tf.forward_train(model, batch, arch)
+            _sync(device)
+            walls.append(time.perf_counter() - t0)
+        lg = logits[..., :arch.vocab_size]
+        if tuple(logits.shape) != (ENC_BATCH, ENC_FRAMES, arch.padded_vocab) \
+                or not torch.isfinite(lg).all():
+            raise AssertionError(f"lm_families: {name}: forward gave "
+                                 f"{tuple(logits.shape)} or non-finite "
+                                 "logits")
+        fwd_ms = float(np.median(walls[1:])) * 1e3
+        profile = None
+        if str(device).startswith("cuda"):
+            profile = _profile_step(
+                lambda: tf.forward_train(model, batch, arch), fwd_ms)
+        # the bound: 2 flops a parameter a frame (the products) plus the
+        # attention's 4 B T^2 d a layer; the weights, frames and logits once
+        tokens = ENC_BATCH * ENC_FRAMES
+        flops = 2 * out["params"] * tokens + \
+            4 * ENC_BATCH * ENC_FRAMES ** 2 * arch.d_model * arch.num_layers
+        moved = tf.param_bytes(model) + batch["embeds"].numel() * 2 \
+            + logits.numel() * 4
+        out["encoder"] = dict(batch=ENC_BATCH, frames=ENC_FRAMES,
+                              forward_s_runs=walls, forward_ms=fwd_ms,
+                              frames_per_s=tokens / (fwd_ms / 1e3),
+                              weight_bytes=tf.param_bytes(model),
+                              **_bound(moved, flops), profile=profile)
+    del model
+    return out
+
+
+def _family_cut(name: str, *, device, seed: int, smoke: bool = False
+                ) -> dict:
+    """(ii) ``name``'s full width cut to 2 layers (the hybrid to one block,
+    the MoE to CUT_EXPERTS experts), the same weights (a CPU generator) on
+    the card and on the CPU: every decode step's logits (the encoder's
+    forward logits) within LM_LOGIT_TOL, the greedy tokens (the encoder's
+    argmax) equal. The lm_serve phase cuts granite-3-2b the same way."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tf
+
+    full = get_arch(name, smoke=smoke)
+    if full.family == "hybrid":
+        cut = dataclasses.replace(full, num_layers=len(full.block_pattern),
+                                  tail_pattern=())
+    else:
+        cut = dataclasses.replace(full, num_layers=2)
+    reduced = {"num_layers": [cut.num_layers, full.num_layers]}
+    if full.family == "moe":
+        cut = dataclasses.replace(cut, num_experts=CUT_EXPERTS)
+        reduced["num_experts"] = [CUT_EXPERTS, full.num_experts]
+    cpu = tf.init_params(cut, torch.Generator().manual_seed(seed),
+                         device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(seed + 3)
+    diff = 0.0
+    if cut.is_decoder:
+        prompts = torch.as_tensor(rng.integers(0, cut.vocab_size, (2, 8)),
+                                  dtype=torch.int32)
+        got, got_tok = _lm_decode(card, cut, prompts.to(device), 8)
+        want, want_tok = _lm_decode(cpu, cut, prompts, 8)
+        steps = len(got)
+    else:
+        embeds = torch.as_tensor(rng.standard_normal(
+            (2, 64, tf.FRONTEND_DIM)), dtype=torch.float32)
+        got = [tf.forward_train(card, {"embeds": embeds.to(device)},
+                                cut)[0].cpu()]
+        want = [tf.forward_train(cpu, {"embeds": embeds}, cut)[0]]
+        got_tok = got[0][..., :cut.vocab_size].argmax(-1)
+        want_tok = want[0][..., :cut.vocab_size].argmax(-1)
+        steps = 0
+    for g, w in zip(got, want):
+        g = g[..., :cut.vocab_size].float()
+        w = w[..., :cut.vocab_size].float()
+        torch.testing.assert_close(g, w, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL)
+        diff = max(diff, float((g - w).abs().max()))
+    if not torch.equal(got_tok, want_tok):
+        raise AssertionError(f"{name}: the card's greedy tokens differ from "
+                             "the CPU's on the 2-layer cut")
+    return dict(arch=name, family=cut.family, reduced=reduced,
+                param_bytes=tf.param_bytes(cpu), steps=steps,
+                logits_max_abs_diff=diff, tol=LM_LOGIT_TOL, tokens_equal=True)
+
+
+def _d4096_retrieval(s: Smoke, *, device, seed: int, smoke_arch: bool,
+                     n_docs: int, n_queries: int) -> dict:
+    """recurrentgemma-9b's driver retrieving at its d_model: documents and
+    queries are the mean embeddings of random D4096_TOKENS-token sequences
+    under the driver's own table (``serve._model_and_prompts``), in a
+    HYBRID index (capacity 1); ``serve.main`` over ``--index-dir`` and again
+    with ``--memory-budget 0.25`` (ids equal), then the queries through the
+    kernels and the plain versions, resident and streamed, and the on-path
+    kernels against their plain versions at these shapes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import PageANNIndex
+    from repro_torch.launch import serve
+
+    arch = get_arch(D4096_ARCH, smoke=smoke_arch)
+    size = ["--smoke"] if smoke_arch else []
+    model, _ = serve._model_and_prompts(arch, 1, 1, device)
+    docs = _token_means(model, n_docs, arch.vocab_size, seed + 20,
+                        D4096_TOKENS)
+    q = _token_means(model, n_queries, arch.vocab_size, seed + 21,
+                     D4096_TOKENS)
+    del model
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+    cfg = _lm_index_cfg(arch.d_model)
+    out: dict = {}
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        t0 = time.perf_counter()
+        index = PageANNIndex.build(docs, cfg, device=device)
+        build_s = time.perf_counter() - t0
+        idx_dir = str(root / "idx.pageann")
+        index.save(idx_dir)
+        out["index"] = dict(
+            docs=n_docs, dim=cfg.dim, capacity=cfg.resolve_capacity(),
+            record_rows=int(index.data.page_recs.shape[1]),
+            pages=int(index.data.page_recs.shape[0]), build_s=build_s,
+            stats=dataclasses.asdict(index.stats))
+        emit("lm_families", stage="d4096_index", **out["index"])
+        runs = {"index": ["--arch", D4096_ARCH, "--index-dir", idx_dir],
+                "budget": ["--arch", D4096_ARCH, "--index-dir", idx_dir,
+                           "--memory-budget", str(BUDGET)]}
+        texts, out["driver_launches"], out["driver_s"] = {}, {}, {}
+        for label, argv in runs.items():
+            texts[label], launches, sec = _driver(
+                size + argv, device=device, label=label, phase="lm_families")
+            out["driver_launches"][label] = {k: v for k, v in launches.items()
+                                             if v}
+            out["driver_s"][label] = sec
+        if _retrieved(texts["budget"]) != _retrieved(texts["index"]):
+            raise AssertionError("lm_families: the driver's ids under a 0.25 "
+                                 "budget differ from the resident run's at "
+                                 f"d = {cfg.dim}")
+        if str(device).startswith("cuda"):
+            need = {"index": ("page_scan", "pq_adc", "hamming"),
+                    "budget": ("page_scan_recs",)}
+            for label, kernels in need.items():
+                never = [k for k in kernels
+                         if not out["driver_launches"][label].get(k)]
+                if never:
+                    raise AssertionError(f"lm_families driver {label}: "
+                                         f"{never} never launched")
+        out["search"] = _lm_searches(index, idx_dir, docs, q, None,
+                                     device=device, label="lm_families")
+        emit("lm_families", stage="d4096_search", **out["search"])
+        if str(device).startswith("cuda"):
+            out["kernels"] = _lm_kernel_cases(s, index, q, None)
+            for row in out["kernels"].values():
+                emit("lm_families", stage="d4096_kernel", **row)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _d4096_row(fam: dict, name: str) -> dict | None:
+    """A kernel's numbers at d = 4096 for the kernels line (None for a
+    kernel off this path): device ms, plain ms and bound at the retrieval's
+    shapes, launches in that phase's counted 1,000-query search."""
+    if name not in D4096_PATHS:
+        return None
+    r = fam["d4096"]["kernels"][name]
+    search = D4096_PATHS[name]
+    return dict(
+        search=search,
+        launches=fam["d4096"]["search"][search]["launches"].get(name, 0),
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        max_abs_err=r["max_abs_err"])
+
+
+def run_lm_families(s: Smoke, *, device: str, seed: int,
+                    smoke_arch: bool = False, n_docs: int = N_D4096_DOCS,
+                    n_queries: int = N_QUERIES) -> dict:
+    """The MoE, SSM, hybrid, audio and VLM families on the card, one model
+    at a time (each freed before the next): at full width (FAMILY_DEPTH's
+    cuts) ``generate`` timed and a step profiled, or the encoder's forward;
+    each family's cut held card against CPU; then recurrentgemma-9b's
+    retrieval at d = 4096 through the driver and the kernels.
+    ``smoke_arch`` takes the SMOKE configs, for a CPU rehearsal."""
+    out: dict = {"models": {}, "cuts": {}}
+    for name in FAMILY_DEPTH:
+        row = _family_model(name, device=device, seed=seed, smoke=smoke_arch)
+        out["models"][name] = row
+        emit("lm_families", stage="model", **row)
+    for name in FAMILY_CUTS:
+        out["cuts"][name] = _family_cut(name, device=device, seed=seed,
+                                        smoke=smoke_arch)
+        emit("lm_families", stage="cut", **out["cuts"][name])
+    out["d4096"] = _d4096_retrieval(s, device=device, seed=seed,
+                                    smoke_arch=smoke_arch, n_docs=n_docs,
+                                    n_queries=n_queries)
+    return out
+
+
 def filter_exprs(scores, *, full: bool) -> dict:
     """The predicates of the filter phase: numeric bounds at each
     selectivity (quantiles of the score column) and a tag-and-numeric
@@ -3046,6 +3407,8 @@ def main(argv=None) -> int:
     phase_sift1m(smoke, cfg_h, cfg_m)
     torch.cuda.empty_cache()
     lm = run_lm_serve(smoke, device="cuda", seed=args.seed)
+    torch.cuda.empty_cache()
+    fam = run_lm_families(smoke, device="cuda", seed=args.seed)
     torch.cuda.empty_cache()
 
     # each path's launches, counted from 0 just before its run: the e2e
@@ -3117,6 +3480,9 @@ def main(argv=None) -> int:
             launches_lm_serve=sum(run.get(name, 0) for run in
                                   lm["driver_launches"].values()),
             lm_serve_d2048=_lm_row(lm, name),
+            launches_lm_families=sum(run.get(name, 0) for run in
+                                     fam["d4096"]["driver_launches"].values()),
+            lm_families_d4096=_d4096_row(fam, name),
             max_abs_err=smoke.err[name],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

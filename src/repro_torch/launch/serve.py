@@ -43,8 +43,10 @@ the engine/service and writes the capture as Chrome ``trace_event`` JSON
 asserts the exposition parses and its counters reconcile with
 ``metrics()`` — the CI smoke gate.
 
-The model is the port's dense decoder (``repro_torch.models``) at the
-arch's full width unless ``--smoke``; its weights are a random init from a
+The model is the port's ``repro_torch.models`` decoder of ``--arch`` (any
+decoder family: dense, MoE, SSM, hybrid, VLM; an encoder-only arch exits
+with the reference's message) at the arch's full width unless
+``--smoke``; its weights are a random init from a
 ``torch.Generator`` seeded 0 and the prompts ``torch.randint`` under one
 seeded 1 (``_model_and_prompts``), so they are not the reference's
 ``jax.random`` bits. Unlike the reference, no optimizer state is built:
@@ -100,7 +102,8 @@ def _model_and_prompts(arch, batch: int, prompt_len: int, device):
 
 def embed_prompts(model, prompts: torch.Tensor) -> np.ndarray:
     """Each prompt's mean token embedding (B, d), float32 on the host: the
-    retrieval query."""
+    retrieval query. The table is ``embed``, which is also the output
+    head where the config ties embeddings (mamba2)."""
     with torch.no_grad():
         emb = model.embed[prompts.long()].mean(dim=1)
     return emb.to(torch.float32).cpu().numpy()

@@ -1,2 +1,3 @@
 """The LM substrate, ported to PyTorch: the counterpart of
-``repro.models`` (the dense family: ``layers``, ``transformer``)."""
+``repro.models`` (``layers``, ``moe``, ``ssm``, ``rglru``, ``context``,
+``frontend`` and ``transformer``, every family of the registry)."""

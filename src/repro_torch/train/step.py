@@ -16,10 +16,7 @@ def make_serve_step(cfg: ArchConfig):
     """decode one token: (model, cache, token, pos[, positions3])."""
 
     def serve_step(model, cache, token, pos, positions3=None):
-        if positions3 is not None:
-            raise NotImplementedError(
-                "M-RoPE positions are not ported yet (ROADMAP A13b)")
-        return tf.decode_step(model, cache, token, pos, cfg)
+        return tf.decode_step(model, cache, token, pos, cfg, positions3)
 
     return serve_step
 

@@ -971,3 +971,115 @@ def test_two_layer_full_width_decode_on_the_card_matches_the_cpu(cuda):
         want = want[:, :cut.vocab_size]
         torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
         assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ----------------------------------------------- recurrentgemma's d = 4096
+# a member spans 32 record rows, the page 40 with its 8 code rows; the
+# page scan stages one page a chunk (40 KB of shared memory with the query
+# and its table)
+D4096_PAGES = 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 64, 1000])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("source", ["ids", "staged"])
+@pytest.mark.parametrize("adc", [True, False], ids=["adc", "members"])
+def test_page_scans_match_plain_at_d4096(cuda, adc, source, masked, nq):
+    """Every page-scan variant at recurrentgemma-9b's width (capacity 1)
+    against its plain version; staged = by page id bit for bit,
+    members-only = ADC."""
+    recs, ids, q, lut = (torch.as_tensor(a).to(cuda) for a in page_inputs(
+        D4096_PAGES, LM_CAP, 4096, LM_RP, LM_M, LM_B, nq=nq))
+    assert recs.shape[1] == 40
+    mask = None
+    if masked:
+        rng = np.random.default_rng(nq + 1)
+        mask = torch.as_tensor((rng.random((nq, LM_B, LM_CAP)) < 0.5)
+                               .astype(np.float32)).to(cuda)
+    kw = dict(capacity=LM_CAP, dim=4096, rp=LM_RP, compute_adc=adc,
+              member_mask=mask)
+    staged = recs[ids.long()].contiguous()
+
+    def run(impl=None, adc_=adc):
+        k = dict(kw, compute_adc=adc_)
+        if source == "staged":
+            return ops.page_scan_recs(staged, q, lut, impl=impl, **k)
+        return ops.page_scan(recs, ids, q, lut, impl=impl, **k)
+
+    got, want = run(), run("plain")
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    if adc:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+    assert torch.equal(got[0], ops.page_scan(recs, ids, q, lut, **kw)[0])
+    assert torch.equal(run(adc_=not adc)[0], got[0])
+
+
+@pytest.mark.cuda
+def test_pq_adc_and_hamming_match_plain_at_d4096(cuda):
+    """The d = 4096 retrieval's other on-path kernels (the re-score and the
+    routing) at its shapes: 1,000 pages' M = 16 codes, 1,000 queries."""
+    rng = np.random.default_rng(4096)
+    nq = 1000
+    table = torch.as_tensor(rng.integers(0, 256, (1000, 16)).astype(np.uint8)).to(cuda)
+    ids = torch.as_tensor(rng.integers(0, 1000, (nq, LM_B * LM_RP))).to(cuda)
+    lut = torch.as_tensor(rng.random((nq, 16, 256)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(ops.pq_adc_gather(table, ids, lut),
+                               ops.pq_adc_gather(table, ids, lut, impl="plain"),
+                               rtol=1e-5, atol=1e-4)
+    codes = torch.as_tensor(_words(rng, 512, 2)).to(cuda)
+    qcodes = torch.as_tensor(_words(rng, nq, 2)).to(cuda)
+    got = ops.hamming_topk(codes, qcodes, 8)
+    want = ops.hamming_topk(codes, qcodes, 8, impl="plain")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -------------------------------------- each family's cut, card against CPU
+# 2 layers at full width (the hybrid: one (rec, rec, attn) block; the MoE:
+# 8 of arctic's 128 experts, two full layers being 107 GB), the same
+# weights on the card and the CPU: 12 decode steps' logits within 1e-2 and
+# the greedy tokens equal (the encoder: its forward's logits and argmax).
+# As for granite above, cuBLAS and the CPU's BLAS sum in other orders and
+# the bf16 KV cache can land one bf16 step apart
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["mamba2-370m", "recurrentgemma-9b",
+                                     "hubert-xlarge", "qwen2-vl-72b",
+                                     "arctic-480b"])
+def test_family_cut_on_the_card_matches_the_cpu(cuda, arch_id):
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tf
+
+    full = get_arch(arch_id)
+    if full.family == "hybrid":
+        cut = dataclasses.replace(full, num_layers=3, tail_pattern=())
+    else:
+        cut = dataclasses.replace(full, num_layers=2)
+    if full.family == "moe":
+        cut = dataclasses.replace(cut, num_experts=8)
+    cpu = tf.init_params(cut, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(1)
+    if not cut.is_decoder:
+        embeds = torch.as_tensor(rng.standard_normal((2, 32, 512)),
+                                 dtype=torch.float32)
+        want, _ = tf.forward_train(cpu, {"embeds": embeds}, cut)
+        got, _ = tf.forward_train(card, {"embeds": embeds.to(cuda)}, cut)
+        got, want = got.cpu()[..., :cut.vocab_size], want[..., :cut.vocab_size]
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        return
+    toks = torch.as_tensor(rng.integers(0, cut.vocab_size, (2, 12)),
+                           dtype=torch.int32)
+    caches = [tf.init_cache(cut, 2, 12, device=d) for d in ("cpu", cuda)]
+    for t in range(12):
+        p3 = torch.full((3, 2, 1), t, dtype=torch.int32) if cut.mrope else None
+        want, _ = tf.decode_step(cpu, caches[0], toks[:, t], t, cut, p3)
+        got, _ = tf.decode_step(card, caches[1], toks[:, t].to(cuda), t, cut,
+                                None if p3 is None else p3.to(cuda))
+        got = got.cpu()[:, :cut.vocab_size]
+        want = want[:, :cut.vocab_size]
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))

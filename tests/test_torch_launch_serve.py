@@ -11,7 +11,8 @@ two-collection database (``wiki``, ``notes``). The port cannot reproduce
 and ``randint(PRNGKey(1))`` prompts. Everything the drivers print before
 the generation line (retrieved ids, self-retrieval, cache hits, compile
 counters, obs self-check) must be equal, line for line, and the generated
-tokens equal. A reference run costs seconds at this size, mostly in its
+tokens equal. Every other decoder family (``--arch``, SMOKE width, the
+reference's params for it) generates the reference's tokens. A reference run costs seconds at this size, mostly in its
 eager ``generate``, so the reference generates once (``ref_tokens``) and its
 retrieval runs use a stub; the port always generates. Flag misuse raises
 the reference's ``SystemExit`` message.
@@ -32,6 +33,7 @@ from repro.core.persist import save_database as jsave_database
 from repro.core.vamana import brute_force_knn
 from repro.launch import serve as jserve
 from repro.models import transformer as jtf
+from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
 
@@ -236,7 +238,29 @@ def test_flag_misuse_matches_reference(case, artifacts, ported, monkeypatch,
     assert str(got.value)
 
 
-def test_non_dense_arch_names_a13b():
-    with pytest.raises(NotImplementedError, match="A13b"):
-        serve.main(["--smoke", "--arch", "mamba2-370m", "--batch", "1",
-                    "--prompt-len", "2", "--gen", "1"], device="cpu")
+DECODER_FAMILIES = [a for a in ARCH_IDS
+                    if a != ARCH and jget_arch(a, smoke=True).is_decoder]
+
+
+@pytest.mark.parametrize("arch_id", DECODER_FAMILIES)
+def test_driver_serves_every_decoder_family(arch_id, artifacts, monkeypatch,
+                                            capsys):
+    """``--arch`` over every other decoder at SMOKE width (d = 64, the
+    artifacts' width): the port's driver on the reference's params and
+    prompts retrieves through the index and generates the reference
+    ``generate``'s tokens."""
+    cfg = jget_arch(arch_id, smoke=True)
+    params = jax.tree.map(np.asarray,
+                          jtf.init_params(cfg, jax.random.PRNGKey(0)))
+
+    def model_and_prompts(arch, batch, prompt_len, device):
+        return (tf.params_from_jax(params, arch, device),
+                torch.from_numpy(ref_prompts()).to(device))
+
+    monkeypatch.setattr(serve, "_model_and_prompts", model_and_prompts)
+    argv = ["--arch", arch_id] + RUN + ["--index-dir", artifacts["index"]]
+    out = serve.main(argv, device="cpu")
+    assert "retrieved ids per prompt:" in capsys.readouterr().out
+    want = _REF_GENERATE(jax.tree.map(jax.numpy.asarray, params), cfg,
+                         ref_prompts(), GEN)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
