@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 15-18 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 16-19 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -50,9 +50,25 @@ version. Phases, one JSON line each:
             0.25`` (equal ids), 1,000 queries through the kernels and the
             plain versions, resident and streamed, and the on-path
             kernels at these shapes
+  lm_train  training on the card: granite-3-2b's full CONFIG with AdamW
+            and remat ``dots`` (batch 8 x 512 in 2 microbatches): one
+            warm-up step and 3 timed on a repeated batch (loss finite and
+            falling, parameters moved), one profiled (launches, idle
+            share) against the flop bound, peak memory; the same step at
+            remat ``full``; its parameters (10.5 GB) through ``save`` and
+            ``restore`` into a fresh model, equal bit for bit;
+            qwen1.5-110b's CONFIG with Adafactor at 2 of its 80 layers
+            (printed under ``reduced``; batch 4 x 256); granite cut to 2
+            layers and kimi-k2's SMOKE (bf16) two steps card against CPU
+            (loss and grad norm within 1e-5 relative, bf16 1e-2), and the
+            cut's 2 microbatches against 1 within atol 5e-4, rtol 5e-3;
+            ``examples/train_lm_torch.py``'s drill through
+            ``repro_torch.launch.train`` (120 steps, a restart that resumes
+            at 120 and goes to 200; the step after the restore equal bit
+            for bit to the same step without the restart)
   e2e       ``PageANNIndex.build`` (with a seeded metadata schema) ->
-            ``search`` -> ``recall_at_k`` in HYBRID (the main path, 10,000
-            vectors) and MEM_ALL (members-only page scan, 5,000 vectors:
+            ``search`` -> ``recall_at_k`` in HYBRID (the main path, 6,000
+            vectors) and MEM_ALL (members-only page scan, 3,000 vectors:
             half the depth, so the baselines' build fits the time), once
             through the kernels and once through the plain versions
   stream    each e2e index saved and reloaded under a 0.25 memory budget:
@@ -72,8 +88,8 @@ version. Phases, one JSON line each:
   profile   ``index.profile`` against ``index.search`` (plain and patience
             2): equal results, a trail that sums to the totals, rendered
             by ``repro_torch.obs.report``; profiled against unprofiled time
-  mutable   the HYBRID index wrapped in a ``MutableIndex``: 2,000 inserts
-            (one unseen tag value), 100 upserts, 500 deletes; unified search
+  mutable   the HYBRID index wrapped in a ``MutableIndex``: 1,200 inserts
+            (one unseen tag value), 60 upserts, 300 deletes; unified search
             through the kernels and the plain versions, unfiltered and
             filtered, held to a brute force over the live set; dirty save,
             load (resident and under the budget); then a compaction that
@@ -142,6 +158,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -160,11 +177,14 @@ INF = float("inf")
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-4     # float kernels: the summation order differs
 N_QUERIES = 1000            # one search batch, as a serving engine would send
-# MEM_ALL's e2e vectors: half the main path's depth. The baselines' Vamana
-# build costs as much as an e2e build (153-167 s against 139-171 s on the
-# card's host), and with MEM_ALL at 10,000 the smoke took 493 s before that
-# build was added: the extra one would take it past 9 minutes
-N_MEMALL = 5000
+# the main path's depth: the vectors of the HYBRID e2e build, which the
+# baselines' DiskANN build and the 2-shard store build over too. The Vamana
+# build's host-side prune takes 14-19 ms a vector on the card's host: at
+# 10,000 those three builds took 450-493 s and the whole smoke 995-1,179 s
+# of its 1,200 (PERF.md), so the depth is cut to 6,000
+N_MAIN = 6000
+# MEM_ALL's e2e vectors: half the main path's depth (see N_MAIN)
+N_MEMALL = 3000
 BUDGET = 0.25               # the streamed tier: a quarter of the pages resident
 SELECTIVITIES = (0.5, 0.1, 0.01)
 MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered search,
@@ -173,7 +193,9 @@ MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered searc
 # the squared norms, not with the distance (ROADMAP C1), so its atol is this
 # factor times max|q|^2 + max|x|^2 (about 16 float32 ulps of the largest)
 L2_ATOL_PER_NORM = 1e-6
-N_INSERTS, N_UPSERTS, N_DELETES = 2000, 100, 500   # the mutable phase's writes
+# the mutable phase's writes: a fifth of the main path's depth, so the delta
+# stays under the compaction trigger (delta / live base 0.22 < 0.25)
+N_INSERTS, N_UPSERTS, N_DELETES = 1200, 60, 300
 N_COMPACT_BASE = 1000       # the compaction's base: a build of its own
 # the adaptive phase's settings (AdaptiveParams): early termination alone,
 # entry selection alone, and both; a setting with patience is held to the
@@ -2280,7 +2302,7 @@ N_SHARDS = 2             # the sharded phase's shards (paper §7)
 # the store's search points, in whole-collection SearchParams (the store
 # scales them per shard with shard_params_for): the defaults (beam 64 ->
 # 16 a shard) and beam 128 (-> 32), where the recall floor is held. At the
-# defaults the 10,000 x 128 store reaches recall@10 0.8228 on the card
+# defaults a 10,000 x 128 store reached recall@10 0.8228 on the card
 # against the unsharded index's 0.9604, and the JAX package's search over
 # the same store gives the same ids (tools/sharded_recall_ref.py): the
 # per-shard beam is the cause, not the port
@@ -3353,6 +3375,425 @@ def run_lm_families(s: Smoke, *, device: str, seed: int,
     return out
 
 
+# ----------------------------------------------------------------- lm_train
+TRAIN_ARCH = "granite-3-2b"          # full CONFIG: 40 layers, d_model 2048
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 8, 512, 2
+TRAIN_STEPS = 3                      # timed, after one warm-up step
+# the Adafactor path at qwen1.5-110b's width (d_model 8192, d_ff 49152,
+# vocab 152064, QKV bias): 2 of its 80 layers are 5.21e9 f32 parameters,
+# 20.8 GB, and as much again of gradients. The step peaked at 71.7 GB on
+# an H100 80GB (the 5 GB embedding leaves' update transients; PERF.md); a
+# third layer adds 10.9 GB of parameters and gradients, past 80 GB
+ADAFACTOR_ARCH, ADAFACTOR_DEPTH = "qwen1.5-110b", 2
+ADAFACTOR_BATCH, ADAFACTOR_SEQ = 4, 256
+# the card against the CPU: granite's full width cut to 2 layers (AdamW)
+# and kimi-k2's SMOKE config (bf16 parameters, Adafactor off: its SMOKE
+# trains with AdamW), each two steps of 2 microbatches
+CUT_BATCH, CUT_SEQ = 4, 64
+CUT_REL, CUT_REL_BF16 = 1e-5, 1e-2
+MB_ATOL, MB_RTOL = 5e-4, 5e-3        # tests/test_train_step.py's bounds
+
+
+def _host_space() -> dict:
+    """Free disk under build/ and the host's memory, in GB."""
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                mem[key] = int(val.split()[0]) * 1024 / 1e9
+    return dict(disk_free_gb=shutil.disk_usage(SCRATCH).free / 1e9,
+                ram_total_gb=mem.get("MemTotal"),
+                ram_available_gb=mem.get("MemAvailable"))
+
+
+def _peak_gb(device):
+    import torch
+
+    if not str(device).startswith("cuda"):
+        return None
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _reset_peak(device) -> None:
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _matmul_params(model) -> int:
+    """Parameters that enter a product (all but an untied input embedding,
+    which a step gathers rows of)."""
+    n = sum(p.numel() for p in model.parameters())
+    if model.embed is not None and model.unembed is not None:
+        n -= model.embed.numel()
+    return n
+
+
+def _timed_steps(step_fn, state, batch, steps: int, device):
+    """``steps`` steps on one batch, each timed on the host's clock to a
+    synchronised end; returns (state, losses, seconds a step)."""
+    losses, walls = [], []
+    for _ in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    return state, losses, walls
+
+
+def _first_leaf(model):
+    return next(model.parameters()).detach().clone()
+
+
+def _train_full_width(*, device, seed: int, smoke: bool) -> dict:
+    """granite-3-2b's full CONFIG with AdamW at remat ``dots``: one warm-up
+    step, TRAIN_STEPS timed on the same batch (the loss must fall), one
+    profiled; then the same step at remat ``full``. Returns the numbers and
+    the state (for the checkpoint round trip)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    arch = get_arch(TRAIN_ARCH, smoke=smoke)
+    shape = ShapeConfig("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train",
+                        num_microbatches=TRAIN_MB)
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    state = init_train_state(arch, torch.Generator(device=device)
+                             .manual_seed(seed), device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    state_gb = _peak_gb(device)
+    batch = {k: tf.to_tensor(v, device) for k, v in
+             TokenPipeline(arch, shape, seed=seed).batch(0).items()}
+    step_fn = make_train_step(arch, shape)
+    before = _first_leaf(state.params)
+    state, warm, _ = _timed_steps(step_fn, state, batch, 1, device)
+    state, losses, walls = _timed_steps(step_fn, state, batch, TRAIN_STEPS,
+                                        device)
+    losses = warm + losses
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_train: {arch.name}: losses {losses} not "
+                             "finite and falling on a repeated batch")
+    moved = float((_first_leaf(state.params) - before).abs().max())
+    if not moved > 0:
+        raise AssertionError(f"lm_train: {arch.name}: parameters did not move")
+    step_ms = float(np.median(walls)) * 1e3
+    peak = _peak_gb(device)
+    profile = None
+    if str(device).startswith("cuda"):
+        profile = _profile_step(lambda: step_fn(state, batch), step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_mm = _matmul_params(state.params)
+    pbytes = tf.param_bytes(state.params)
+    # the bound: 6 flops a matmul parameter a token (forward and backward);
+    # the bytes: parameters, m and v read and written, the gradients
+    # written and read
+    bound = _bound(8 * pbytes, 6 * n_mm * tokens)
+    out = dict(
+        arch=arch.name, layers=arch.num_layers, d_model=arch.d_model,
+        optimizer=arch.optimizer, remat=arch.remat,
+        params=sum(p.numel() for p in state.params.parameters()),
+        matmul_params=n_mm, param_bytes=pbytes, batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, microbatches=TRAIN_MB, init_s=init_s,
+        state_gb=state_gb, losses=losses, param_moved=moved,
+        step_s_runs=walls, step_ms=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak,
+        profile=profile, **bound)
+
+    full = dataclasses.replace(arch, remat="full")
+    full_fn = make_train_step(full, shape)
+    _reset_peak(device)
+    state, full_losses, full_walls = _timed_steps(full_fn, state, batch, 2,
+                                                  device)
+    if not all(map(math.isfinite, full_losses)):
+        raise AssertionError(f"lm_train: remat full gave losses {full_losses}")
+    out["remat_full"] = dict(step_s_runs=full_walls,
+                             step_ms=full_walls[-1] * 1e3,
+                             peak_gb=_peak_gb(device), losses=full_losses)
+    return out, state
+
+
+def _checkpoint_round_trip(model, *, device, seed: int) -> dict:
+    """The full-width model's parameters through ``save`` and ``restore``
+    into a fresh model on the card: restored = saved, bit for bit.
+
+    The parameters (10.5 GB), not the whole TrainState (31.6 GB): on the
+    H100 host a save ran at 1.05 and a restore at 1.71 GB/s (PERF.md), so
+    the whole state would add ~32 s to a smoke that has 133-205 s of its
+    1,200 left; m, v and the step counters take the code path of a plain
+    tensor leaf, which the embeddings take here."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.models import transformer as tf
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        ckpt.save(str(root), 1, model)
+        save_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in root.rglob("*.npy"))
+        target = tf.init_params(model.cfg, torch.Generator(device=device)
+                                .manual_seed(seed + 7), device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        ckpt.restore(str(root), 1, target)
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+        got, want = T.layer_leaves(target), T.layer_leaves(model)
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("lm_train: the restored checkpoint differs "
+                                 "from the saved parameters")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(scope="params", leaves=len(want), bytes=on_disk,
+                save_s=save_s, restore_s=restore_s,
+                save_gb_per_s=on_disk / save_s / 1e9,
+                restore_gb_per_s=on_disk / restore_s / 1e9, equal=True)
+
+
+def _train_adafactor(*, device, seed: int, smoke: bool) -> dict:
+    """qwen1.5-110b's CONFIG (Adafactor, remat full) at ADAFACTOR_DEPTH of
+    its layers: one step of one microbatch, then one timed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    full = get_arch(ADAFACTOR_ARCH, smoke=smoke)
+    depth = min(ADAFACTOR_DEPTH, full.num_layers)
+    # the SMOKE config (a CPU rehearsal) trains with AdamW: take Adafactor
+    arch = dataclasses.replace(full, num_layers=depth, optimizer="adafactor")
+    shape = ShapeConfig("lm_train", ADAFACTOR_SEQ, ADAFACTOR_BATCH, "train")
+    _reset_peak(device)
+    state = init_train_state(arch, torch.Generator(device=device)
+                             .manual_seed(seed), device=device)
+    batch = {k: tf.to_tensor(v, device) for k, v in
+             TokenPipeline(arch, shape, seed=seed).batch(0).items()}
+    step_fn = make_train_step(arch, shape)
+    before = _first_leaf(state.params)
+    state, losses, walls = _timed_steps(step_fn, state, batch, 2, device)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_train: {arch.name} (Adafactor): losses "
+                             f"{losses} not finite and falling")
+    moved = float((_first_leaf(state.params) - before).abs().max())
+    tokens = ADAFACTOR_BATCH * ADAFACTOR_SEQ
+    n_mm = _matmul_params(state.params)
+    out = dict(
+        arch=arch.name, optimizer=arch.optimizer, remat=arch.remat,
+        layers=depth, reduced={"num_layers": [depth, full.num_layers]},
+        d_model=arch.d_model, d_ff=arch.d_ff, vocab=arch.vocab_size,
+        params=sum(p.numel() for p in state.params.parameters()),
+        param_bytes=tf.param_bytes(state.params), batch=ADAFACTOR_BATCH,
+        seq_len=ADAFACTOR_SEQ, losses=losses, param_moved=moved,
+        step_s_runs=walls, step_ms=walls[-1] * 1e3,
+        tokens_per_s=tokens / walls[-1], peak_gb=_peak_gb(device),
+        **_bound(4 * tf.param_bytes(state.params), 6 * n_mm * tokens))
+    del state
+    return out
+
+
+def _state_to(state, device):
+    """A copy of a TrainState on ``device`` (a copy on the CPU too)."""
+    import copy
+
+    from repro_torch import tree as T
+    from repro_torch.train.step import TrainState
+
+    def to(t):
+        return t.to(device, copy=True)
+
+    opt = state.opt_state
+    return TrainState(copy.deepcopy(state.params).to(device),
+                      type(opt)(*T.map(to, tuple(opt))), to(state.step))
+
+
+def _train_cut(name: str, cut, *, device, seed: int) -> dict:
+    """Two steps of ``cut`` (2 microbatches) on the card and the CPU from
+    the same state and batches: loss and grad norm within CUT_REL
+    relative (bf16 parameters: CUT_REL_BF16); for a float32 config also
+    one step of one microbatch against two on the card, parameters within
+    the reference test's bounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    shape = ShapeConfig("cut", CUT_SEQ, CUT_BATCH, "train",
+                        num_microbatches=2)
+    cpu = init_train_state(cut, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    card = _state_to(cpu, device)
+    f32 = cut.param_dtype == "float32"
+    one_mb, two_mb = ((_state_to(cpu, device), _state_to(cpu, device))
+                      if f32 else (None, None))
+    pipe = TokenPipeline(cut, shape, seed=seed)
+    step_fn = make_train_step(cut, shape)
+    rel = CUT_REL if f32 else CUT_REL_BF16
+    diffs = {"loss": 0.0, "grad_norm": 0.0}
+    for i in range(2):
+        batch = pipe.batch(i)
+        cpu, want = step_fn(cpu, batch)
+        card, got = step_fn(card, batch)
+        for k in diffs:
+            g, w = float(got[k]), float(want[k])
+            if not abs(g - w) <= rel * abs(w):
+                raise AssertionError(f"lm_train: {name}: step {i} {k} "
+                                     f"{g} on the card, {w} on the CPU")
+            diffs[k] = max(diffs[k], abs(g - w) / abs(w))
+    out = dict(arch=name, layers=cut.num_layers, d_model=cut.d_model,
+               param_dtype=cut.param_dtype, optimizer=cut.optimizer,
+               steps=2, microbatches=2, rel_diff=diffs, rel_tol=rel)
+    if f32:
+        one = make_train_step(cut, ShapeConfig("cut", CUT_SEQ, CUT_BATCH,
+                                               "train"))
+        one_mb, _ = one(one_mb, pipe.batch(0))
+        two_mb, _ = step_fn(two_mb, pipe.batch(0))
+        worst = 0.0
+        for a, b in zip(one_mb.params.parameters(),
+                        two_mb.params.parameters()):
+            a, b = a.detach().float().cpu(), b.detach().float().cpu()
+            np.testing.assert_allclose(b.numpy(), a.numpy(), atol=MB_ATOL,
+                                       rtol=MB_RTOL)
+            worst = max(worst, float((a - b).abs().max()))
+        out["microbatched_vs_unbatched_max_abs"] = worst
+    return out
+
+
+def _train_drill(*, device, seed: int) -> dict:
+    """``examples/train_lm_torch.py``'s drill through the port's driver on
+    the card: 120 steps with a checkpoint every 40, then a restart that
+    restores step 120 and goes on to 200; then step 120 run from the
+    restored checkpoint equals step 120 run from the first run's state in
+    memory, bit for bit (loss and every parameter)."""
+    import contextlib
+    import io
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_lm_torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import make_train_step
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            first, second = train_lm_torch.drill(str(root), device)
+        drill_s = time.perf_counter() - t0
+        text = buf.getvalue()
+        if "restored step 120 from" not in text or int(second.step) != 200:
+            raise AssertionError(f"lm_train: the drill did not resume at 120 "
+                                 f"and reach 200:\n{text}")
+        arch = get_arch("granite-3-2b", smoke=True)
+        args = train_lm_torch.drill_args(str(root), 120)
+        lr = float(args[args.index("--lr") + 1])
+        shape = ShapeConfig("smoke", int(args[args.index("--seq-len") + 1]),
+                            int(args[args.index("--batch") + 1]), "train",
+                            num_microbatches=int(
+                                args[args.index("--microbatches") + 1]))
+        restored = ckpt.restore(str(root), 120,
+                                train._init_state(arch, lr, device))
+        batch = {k: tf.to_tensor(v, device) for k, v in
+                 TokenPipeline(arch, shape, seed=0).batch(120).items()}
+        step_fn = make_train_step(arch, shape, lr=lr)
+        a, ma = step_fn(restored, batch)
+        b, mb = step_fn(first, batch)
+        same = float(ma["loss"]) == float(mb["loss"]) and all(
+            torch.equal(x, y) for x, y in zip(T.layer_leaves(tuple(a)),
+                                              T.layer_leaves(tuple(b))))
+        if not same:
+            raise AssertionError("lm_train: the step after a restore differs "
+                                 "from the same step without the restart")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lines = [ln for ln in text.splitlines() if ln.startswith(("step", "restored"))]
+    return dict(drill_s=drill_s, lines=lines, resumed_at=120,
+                final_step=int(second.step), step_after_restore_equal=True)
+
+
+def run_lm_train(s: Smoke, *, device: str, seed: int,
+                 smoke_arch: bool = False) -> dict:
+    """Training on the card: granite-3-2b at full width (AdamW, remat
+    ``dots``, then ``full``), its checkpoint round trip, qwen1.5-110b's
+    Adafactor step at ADAFACTOR_DEPTH layers, the cuts card against CPU
+    and the driver's drill. ``smoke_arch`` takes the SMOKE configs, for a
+    CPU rehearsal."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    out: dict = {"host": _host_space()}
+    emit("lm_train", stage="host", **out["host"])
+    t0 = time.perf_counter()
+    out["granite"], state = _train_full_width(device=device, seed=seed,
+                                              smoke=smoke_arch)
+    emit("lm_train", stage="full_width", seconds=time.perf_counter() - t0,
+         **out["granite"])
+    t0 = time.perf_counter()
+    out["checkpoint"] = _checkpoint_round_trip(state.params, device=device,
+                                               seed=seed)
+    emit("lm_train", stage="checkpoint", seconds=time.perf_counter() - t0,
+         **out["checkpoint"])
+    del state
+    t0 = time.perf_counter()
+    out["adafactor"] = _train_adafactor(device=device, seed=seed,
+                                        smoke=smoke_arch)
+    emit("lm_train", stage="adafactor", seconds=time.perf_counter() - t0,
+         **out["adafactor"])
+    granite = get_arch(TRAIN_ARCH, smoke=smoke_arch)
+    cuts = {"granite-3-2b (2 layers)": dataclasses.replace(granite,
+                                                           num_layers=2),
+            "kimi-k2-1t-a32b (SMOKE)": get_arch("kimi-k2-1t-a32b",
+                                                smoke=True)}
+    out["cuts"] = {}
+    for name, cut in cuts.items():
+        t0 = time.perf_counter()
+        out["cuts"][name] = _train_cut(name, cut, device=device, seed=seed)
+        emit("lm_train", stage="cut", seconds=time.perf_counter() - t0,
+             **out["cuts"][name])
+    t0 = time.perf_counter()
+    out["drill"] = _train_drill(device=device, seed=seed)
+    emit("lm_train", stage="drill", seconds=time.perf_counter() - t0,
+         **out["drill"])
+    return out
+
+
 def filter_exprs(scores, *, full: bool) -> dict:
     """The predicates of the filter phase: numeric bounds at each
     selectivity (quantiles of the score column) and a tag-and-numeric
@@ -3371,9 +3812,7 @@ def filter_exprs(scores, *, full: bool) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # 10,000: the Vamana build's host-side prune takes 14-19 ms a vector on
-    # the card's host, so 20,000 would not fit in 5 minutes
-    ap.add_argument("--n", type=int, default=10_000,
+    ap.add_argument("--n", type=int, default=N_MAIN,
                     help="vectors in the HYBRID end-to-end build and the "
                          "baselines' build")
     ap.add_argument("--seed", type=int, default=0)
@@ -3409,6 +3848,8 @@ def main(argv=None) -> int:
     lm = run_lm_serve(smoke, device="cuda", seed=args.seed)
     torch.cuda.empty_cache()
     fam = run_lm_families(smoke, device="cuda", seed=args.seed)
+    torch.cuda.empty_cache()
+    run_lm_train(smoke, device="cuda", seed=args.seed)
     torch.cuda.empty_cache()
 
     # each path's launches, counted from 0 just before its run: the e2e

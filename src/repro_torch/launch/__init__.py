@@ -1,3 +1,3 @@
 """Launch-time helpers and drivers of the port: the counterpart of
-``repro.launch`` (its device mesh, ``launch.mesh``, and the serving
-driver, ``launch.serve``)."""
+``repro.launch`` (its device mesh, ``launch.mesh``, the serving driver,
+``launch.serve``, and the training driver, ``launch.train``)."""

@@ -16,7 +16,8 @@ import contextvars
 _rules = contextvars.ContextVar("repro_torch_sharding_rules", default=None)
 
 
-def _refuse(rules) -> None:
+def refuse_rules(rules) -> None:
+    """Raise where sharding rules are given: they come with ROADMAP A13d."""
     if rules is not None:
         raise NotImplementedError(
             "sharding rules are not ported yet (ROADMAP A13d)")
@@ -24,7 +25,7 @@ def _refuse(rules) -> None:
 
 @contextlib.contextmanager
 def use_rules(rules):
-    _refuse(rules)
+    refuse_rules(rules)
     tok = _rules.set(rules)
     try:
         yield
@@ -34,12 +35,12 @@ def use_rules(rules):
 
 def current_dp_size() -> int:
     """Product of the active dp mesh axes: 1, since no rules are installed."""
-    _refuse(_rules.get())
+    refuse_rules(_rules.get())
     return 1
 
 
 def act_shard(x, *logical):
     """Constrain activation ``x`` to the logical axes: the identity, since
     no rules are installed."""
-    _refuse(_rules.get())
+    refuse_rules(_rules.get())
     return x

@@ -287,12 +287,19 @@ def init_mlp(generator, d, ff, dtype, num_layers=1, device=None) -> dict:
     }
 
 
+def _project(x, w):
+    """``einsum("btd,dhx->bthx", x, w)`` as one matrix product: a 3-D by
+    2-D ``@`` runs as ``aten.mm``, which a ``remat="dots"`` policy keeps
+    (an einsum runs as a one-batch ``aten.bmm``)."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
 def attention_qkv(params, x, cfg, positions=None, positions3=None):
     """Project + rotate (M-RoPE where the config has it and ``positions3``
     is given, else RoPE). Returns q (B,T,H,hd), k, v (B,T,KvH,hd)."""
-    q = torch.einsum("btd,dhx->bthx", x, params["wq"])
-    k = torch.einsum("btd,dhx->bthx", x, params["wk"])
-    v = torch.einsum("btd,dhx->bthx", x, params["wv"])
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -307,4 +314,5 @@ def attention_qkv(params, x, cfg, positions=None, positions3=None):
 
 
 def attention_out(params, attn):
-    return torch.einsum("bthx,hxd->btd", attn, params["wo"])
+    wo = params["wo"]
+    return attn.flatten(-2) @ wo.reshape(-1, wo.shape[-1])

@@ -100,9 +100,13 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     for ci in range(nc):
         xs_c, dts_c = xs[:, ci], dts[:, ci]
         Bs_c, Cs_c, cum_c = Bs[:, ci], Cs[:, ci], cum[:, ci]
-        # intra-chunk (quadratic): L[i,j] = exp(cum_i - cum_j) for i >= j
+        # intra-chunk (quadratic): L[i,j] = exp(cum_i - cum_j) for i >= j.
+        # Masked before the exp: the reference masks after it, where
+        # cum_i - cum_j (i < j) overflows exp to inf once a chunk's decay
+        # passes ~88 and the gradient of the masked branch is 0 * inf = NaN
+        # (ROADMAP C8). The values are the same bits either way.
         li = cum_c[:, :, None, :] - cum_c[:, None, :, :]      # (b, Q, Q, h)
-        L = torch.where(causal[None, :, :, None], torch.exp(li), 0.0)
+        L = torch.exp(torch.where(causal[None, :, :, None], li, -torch.inf))
         G = torch.einsum("bqn,bkn->bqk", Cs_c, Bs_c)           # (b, Q, Q)
         M = G[..., None] * L                                   # (b, Q, Q, h)
         y_intra = torch.einsum(

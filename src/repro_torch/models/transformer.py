@@ -32,11 +32,22 @@ each layer's weights in the activation dtype (the router stays float32),
 as the reference's ``_cast_layer_params`` does; the port casts each weight
 as a product reads it, never a whole layer at once (one full-width
 kimi-k2 layer's experts are 33.8 GB in bfloat16). ``decode_step`` casts
-nothing, as the reference's. Sharding rules come with ROADMAP A13d, and
-gradient checkpointing (``remat``) with training, A13c.
+nothing, as the reference's. Sharding rules come with ROADMAP A13d.
+
+``forward_train`` is differentiable: a training model's parameters carry
+``requires_grad`` (``repro_torch.train.step.init_train_state``), a serving
+model's do not, so serving builds no graph. While a graph is built each
+layer (the hybrid: each block) runs under the config's ``remat`` policy, as
+the reference's ``_remat``: ``"full"`` recomputes the layer in the backward
+pass, ``"dots"`` keeps the weight products' outputs (``aten.mm``: a 3-D by
+2-D ``@`` folds to it) and recomputes the rest, the batched attention
+products (``aten.bmm``) included, as ``checkpoint_dots_with_no_batch_dims``
+does. ``Transformer.param_tree`` gives a model's parameters in the
+reference's tree, each layer-stacked leaf a :class:`repro_torch.tree.Stack`.
 """
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
 
 import numpy as np
@@ -60,6 +71,7 @@ from repro_torch.models.layers import (
     pairscan_attention,
     rms_norm,
 )
+from repro_torch.tree import Stack
 
 FRONTEND_DIM = 512  # stubbed modality frontends emit this width
 
@@ -197,6 +209,27 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final["scale"].device
+
+    def param_tree(self) -> dict:
+        """The parameters (the tensors themselves) in the reference's tree:
+        nested dicts under the reference's names, each leaf that the
+        reference stacks over layers (or the hybrid's blocks) a
+        :class:`~repro_torch.tree.Stack` of the port's per-layer tensors."""
+        out = {"final": {"scale": self.final["scale"]}}
+        for name in ("embed", "in_proj_frontend", "unembed"):
+            p = getattr(self, name)
+            if p is not None:
+                out[name] = p
+        if self.layers is not None:
+            out["layers"] = _stack_params([layer.params()
+                                           for layer in self.layers])
+        else:
+            out["blocks"] = {name: _stack_params([layer.params()
+                                                  for layer in stack])
+                             for name, stack in self.blocks.items()}
+            out["tail"] = {name: layer.params()
+                           for name, layer in self.tail.items()}
+        return out
 
 
 def _init_dense_layer(generator, cfg, dtype, device) -> dict:
@@ -354,6 +387,13 @@ def params_to_numpy(model: Transformer) -> dict:
     return out
 
 
+def _stack_params(layers) -> dict:
+    first = layers[0]
+    if isinstance(first, Mapping):
+        return {k: _stack_params([p[k] for p in layers]) for k in first}
+    return Stack(layers)
+
+
 def param_bytes(model: Transformer) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
@@ -451,6 +491,32 @@ def _layer_fwd(kind, layer, x, cfg, positions, positions3):
     return _dense_layer_fwd(p, x, cfg, positions, positions3)
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``cfg.remat`` (see the module docstring)."""
+    if cfg.remat == "none":
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: 'none', 'dots' or 'full'")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _matmul(x, w):
     """``x @ w`` in the promoted dtype, as ``jnp.matmul`` promotes."""
     dt = torch.promote_types(x.dtype, w.dtype)
@@ -482,7 +548,7 @@ def forward_train(model: Transformer, batch: dict, cfg: ArchConfig,
     """batch: tokens (B,T) [or embeds (B,T,F)], optional positions (B,T),
     optional positions3 (3,B,T). Returns (logits (B, T, V_pad), aux_loss):
     aux is the MoE load-balancing loss summed over layers, 0 elsewhere."""
-    with use_rules(rules), torch.no_grad():
+    with use_rules(rules):
         x = embed_inputs(model, batch, cfg)
         positions = batch.get("positions")
         if positions is None:
@@ -493,22 +559,37 @@ def forward_train(model: Transformer, batch: dict, cfg: ArchConfig,
         positions3 = batch.get("positions3")
         if positions3 is not None:
             positions3 = torch.as_tensor(positions3, device=x.device)
-        fwd = (lambda kind, layer, x:
-               _layer_fwd(kind, layer, x, cfg, positions, positions3))
+
+        def fwd(kind, layer, x):
+            return _layer_fwd(kind, layer, x, cfg, positions, positions3)
+
+        # remat only where a graph is built: a serving model's parameters
+        # carry no gradient
+        training = torch.is_grad_enabled() and model.final["scale"].requires_grad
+        remat = (lambda fn: _remat(fn, cfg)) if training else (lambda fn: fn)
         aux = _zero(x)
         if cfg.family == "hybrid":
             nb, pat, _ = hybrid_layout(cfg)
-            for j in range(nb):
+
+            def block_fwd(x, j):
+                aux = _zero(x)
                 for i, kind in enumerate(pat):
                     x, a = fwd(kind, model.blocks[f"pos{i}_{kind}"][j], x)
                     aux = aux + a
+                return x, aux
+
+            block = remat(block_fwd)
+            for j in range(nb):
+                x, a = block(x, j)
+                aux = aux + a
             for name, layer in model.tail.items():
                 x, a = fwd(name.split("_")[-1], layer, x)
                 aux = aux + a
         else:
             kind = _layer_kind(cfg)
+            body = remat(lambda x, layer: fwd(kind, layer, x))
             for layer in model.layers:
-                x, a = fwd(kind, layer, x)
+                x, a = body(x, layer)
                 aux = aux + a
         x = rms_norm(x, model.final["scale"], cfg.norm_eps)
         logits = unembed(model, x, cfg)

@@ -1,1 +1,2 @@
-"""Step builders: the counterpart of ``repro.train`` (serving steps)."""
+"""Step builders and gradient compression: the counterpart of
+``repro.train`` (``step``: training and serving steps; ``compress``)."""

@@ -1083,3 +1083,117 @@ def test_family_cut_on_the_card_matches_the_cpu(cuda, arch_id):
         want = want[:, :cut.vocab_size]
         torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
         assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ------------------------------------------------------------- training ----
+def _train_copy(state, device):
+    """A copy of a TrainState on ``device``."""
+    import copy
+
+    from repro_torch import tree as T
+    from repro_torch.train.step import TrainState
+
+    opt = state.opt_state
+    return TrainState(copy.deepcopy(state.params).to(device),
+                      type(opt)(*T.map(lambda t: t.to(device, copy=True),
+                                       tuple(opt))),
+                      state.step.to(device, copy=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["granite-3-2b", "mamba2-370m",
+                                     "recurrentgemma-9b", "kimi-k2-1t-a32b",
+                                     "qwen2-vl-72b", "hubert-xlarge"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch_id):
+    """Two steps of 2 microbatches (SMOKE config, the same state and
+    batches): loss and grad norm within 1e-5 relative (bf16 parameters:
+    1e-2)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_arch(arch_id, smoke=True)
+    shape = ShapeConfig("t", 32, 4, "train", num_microbatches=2)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    card = _train_copy(cpu, cuda)
+    step = make_train_step(cfg, shape)
+    rel = 1e-2 if cfg.param_dtype == "bfloat16" else 1e-5
+    pipe = TokenPipeline(cfg, shape)
+    for i in range(2):
+        cpu, want = step(cpu, pipe.batch(i))
+        card, got = step(card, pipe.batch(i))
+        for k in ("loss", "grad_norm"):
+            assert abs(float(got[k]) - float(want[k])) <= rel * abs(
+                float(want[k])), (i, k)
+    assert int(card.step) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizers_on_the_card_match_the_cpu(cuda, name):
+    """The same parameters and gradients (a Stack of 3 layers, an expert
+    stack, a vector stack, an unstacked rank-3 leaf), three steps:
+    parameters and state within 1e-6."""
+    from repro_torch import tree as T
+    from repro_torch.optim import make_optimizer
+
+    def tree(device):
+        r = np.random.default_rng(1)
+
+        def a(*shape):
+            return torch.tensor(r.standard_normal(shape),
+                                dtype=torch.float32, device=device)
+
+        return {"embed": a(64, 32),
+                "layers": {"w": T.Stack(a(32, 48) for _ in range(3)),
+                           "we": T.Stack(a(4, 32, 16) for _ in range(3)),
+                           "scale": T.Stack(a(32) for _ in range(3))},
+                "tail": {"wq": a(32, 4, 8)}}
+
+    opt = make_optimizer(name, 0.01)
+    out = {}
+    for device in ("cpu", cuda):
+        params, grads = tree(device), T.map(
+            lambda x: T.Stack(t * 0.5 for t in x) if isinstance(x, T.Stack)
+            else x * 0.5, tree(device))
+        state = opt.init(params)
+        for _ in range(3):
+            params, state, _ = opt.update(grads, state, params)
+        out[device] = (T.layer_leaves(params),
+                       T.layer_leaves(tuple(state)[1:]))
+    for got, want in zip(out[cuda], out["cpu"]):
+        for a, b in zip(got, want, strict=True):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """kimi-k2's SMOKE TrainState (bf16 parameters) after a step on the
+    card: saved, restored into a fresh state on the card and one on the
+    CPU, every leaf equal bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_arch("kimi-k2-1t-a32b", smoke=True)
+    shape = ShapeConfig("t", 16, 4, "train")
+    state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    state, _ = make_train_step(cfg, shape)(state,
+                                           TokenPipeline(cfg, shape).batch(0))
+    ckpt.save(str(tmp_path), 1, state)
+    for device in (cuda, "cpu"):
+        target = init_train_state(cfg, torch.Generator().manual_seed(9),
+                                  device=device)
+        ckpt.restore(str(tmp_path), 1, target)
+        got, want = T.layer_leaves(target), T.layer_leaves(state)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu())
+    assert state.params.embed.dtype == torch.bfloat16

@@ -655,6 +655,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b(?!_)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 10
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
