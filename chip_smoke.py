@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 16-19 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 12-19 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -66,6 +66,19 @@ version. Phases, one JSON line each:
             ``repro_torch.launch.train`` (120 steps, a restart that resumes
             at 120 and goes to 200; the step after the restore equal bit
             for bit to the same step without the restart)
+  sharding  the sharding rules on the card: granite-3-2b's full-width
+            step with ``rules=None`` and then with ``Rules`` on the (1, 1)
+            DeviceMesh of a world-1 NCCL group (loss and grad norm within
+            1e-5 relative, both step times); its parameters saved and
+            restored under ``shardings=`` bit for bit; the dry run's
+            training and decode cells (``launch.dryrun``) traced in a host
+            process with no card over a fake group of 256 ranks, both
+            ``ok``; after the ``sharded`` phase, shard (0, 0) of SIFT100M
+            (1,041,667 HYBRID pages, 12.8 GB of records, past 2^31 floats)
+            tiled from the e2e index and searched with 64 queries through
+            the kernels and the plain versions (ids equal for >= 99%, no
+            streamed kernel launched), and the page scan held to its plain
+            version on the shard's top pages
   e2e       ``PageANNIndex.build`` (with a seeded metadata schema) ->
             ``search`` -> ``recall_at_k`` in HYBRID (the main path, 6,000
             vectors) and MEM_ALL (members-only page scan, 3,000 vectors:
@@ -93,7 +106,7 @@ version. Phases, one JSON line each:
             through the kernels and the plain versions, unfiltered and
             filtered, held to a brute force over the live set; dirty save,
             load (resident and under the budget); then a compaction that
-            an insert triggers on a 1,000-vector index
+            an insert triggers on a 500-vector index
   baselines ``DiskANNIndex.build`` over the HYBRID e2e data and
             ``StarlingIndex.from_data`` on its graph and codebooks with
             ``group_pages``' layout, searched at the default SearchParams
@@ -143,6 +156,7 @@ from the DiskANN search (its exact rerank, where it is timed at the
 baseline's shapes, (N, 1, d) pages), the distances alone from their own
 entry point ``ops.hamming``, driven once in the kernels phase; each
 row's ``launches_sharded`` from the sharded phase's counted host fan-out,
+``launches_sharding`` from the sharding phase's search of SIFT100M's shard,
 ``launches_lm_serve`` from the lm_serve phase's four driver runs,
 ``lm_serve_d2048`` the kernel's time, bound and launches at that phase's
 d = 2048 shapes (rows 1-5), and ``launches_lm_families`` /
@@ -174,7 +188,6 @@ SCRATCH = ROOT / "build" / "smoke_tmp"   # temporary artifacts (gitignored)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 INF = float("inf")
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-4     # float kernels: the summation order differs
 N_QUERIES = 1000            # one search batch, as a serving engine would send
 # the main path's depth: the vectors of the HYBRID e2e build, which the
@@ -196,7 +209,12 @@ L2_ATOL_PER_NORM = 1e-6
 # the mutable phase's writes: a fifth of the main path's depth, so the delta
 # stays under the compaction trigger (delta / live base 0.22 < 0.25)
 N_INSERTS, N_UPSERTS, N_DELETES = 1200, 60, 300
-N_COMPACT_BASE = 1000       # the compaction's base: a build of its own
+# the compaction's base: a build of its own, and ~3.5x as many vectors of
+# Vamana builds in the phase; with the sharding phase one run took 1,008.7
+# s of the 1,200 on an H100 80GB host whose host-side phases ran 30-60%
+# slower, so the base is cut from 1,000 to 500 (its checks compare a build
+# with a build: no float order between them)
+N_COMPACT_BASE = 500
 # the adaptive phase's settings (AdaptiveParams): early termination alone,
 # entry selection alone, and both; a setting with patience is held to the
 # hops and ios of the same setting without it (the plain search if none)
@@ -331,11 +349,11 @@ class Smoke:
 
 def _bound(bytes_: int, ops_: int) -> dict:
     """The least time the card could take: bytes moved over the memory
-    rate or operations over the float32 rate, whichever is larger."""
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=bytes_, operations=ops_)
+    rate or operations over the float32 rate, whichever is larger
+    (``repro_torch.launch.roofline.kernel_bound``)."""
+    from repro_torch.launch.roofline import kernel_bound
+
+    return kernel_bound(bytes_, ops_)
 
 
 # ------------------------------------------------------------------ phases
@@ -397,6 +415,8 @@ def _page_scan_case(s: Smoke, recs, ids, q, lut, *, cap, dim, rp, m,
     from repro_torch.kernels import ops
     from repro_torch.kernels import page_scan as page_scan_k
 
+    from repro_torch.launch import roofline as rf
+
     name = _variant(adc, masked, staged)
     nq, b = ids.shape
     mask = None
@@ -446,12 +466,9 @@ def _page_scan_case(s: Smoke, recs, ids, q, lut, *, cap, dim, rp, m,
     # distinct page read by id, once per staged record (each is its own
     # copy in device memory)
     records = nq * b if staged else int(torch.unique(ids).numel())
-    bytes_ = (records * (cap * dim + used_m * rp) * 4
-              + (0 if staged else ids.numel() * 4)
-              + q.numel() * 4 + (lut.numel() * 4 if adc else 0)
-              + (mask.numel() * 4 if masked else 0)
-              + nq * b * (cap + (rp if adc else 0)) * 4)
-    ops_ = nq * b * (cap * dim * 3 + rp * used_m)
+    bytes_, ops_ = rf.page_scan_counts(
+        nq, b, records=records, cap=cap, dim=dim, rp=rp, m=used_m,
+        k=lut.shape[2], adc=adc, staged=staged, masked=masked)
     return dict(
         name=name, dim=dim, q=nq, b=b, capacity=cap, max_abs_err=err,
         plan=plan._asdict(), ms=s.time_ms(kernel, reps),
@@ -506,8 +523,9 @@ def _pq_adc_case(s: Smoke, codes, lut, reps: int) -> dict:
     table = lut.reshape(nq * m * k, 1)
     lib = F.embedding_bag(flat_idx, table, mode="sum").reshape(nq, n)
     torch.testing.assert_close(lib, got, rtol=RTOL, atol=ATOL)
-    bytes_ = codes.numel() + lut.numel() * 4 + nq * n * 4
-    ops_ = nq * n * m
+    from repro_torch.launch import roofline as rf
+
+    bytes_, ops_ = rf.pq_adc_counts(nq, n, m, k)
     return dict(
         name="pq_adc", q=nq, n=n, m=m, max_abs_err=err,
         ms=s.time_ms(lambda: ops.pq_adc(codes, lut), 50),
@@ -540,9 +558,11 @@ def _pq_adc_gather_case(s: Smoke, table, ids, lut, reps: int) -> dict:
     m, k = table.shape[1], lut.shape[2]
     rows = int(torch.unique(ids).numel())
     plan = pq_adc_k.launch_plan(nq, n, m, k)
+    from repro_torch.launch import roofline as rf
+
     # each query's table, each id, each distinct code row, the output
-    bytes_ = lut.numel() * 4 + ids.numel() * ids.element_size() + rows * m \
-        + nq * n * 4
+    bytes_, ops_ = rf.pq_adc_gather_counts(nq, n, m, k, rows=rows,
+                                           id_bytes=ids.element_size())
     return dict(
         name="pq_adc", entry="pq_adc_gather", q=nq, n=n, m=m, k=k,
         table_rows=table.shape[0], distinct_rows=rows, max_abs_err=err,
@@ -555,7 +575,7 @@ def _pq_adc_gather_case(s: Smoke, table, ids, lut, reps: int) -> dict:
         plain_ms=s.time_ms(
             lambda: ops.pq_adc_gather(table, ids, lut, impl="plain"),
             max(3, reps // 5)),
-        **_bound(bytes_, nq * n * m),
+        **_bound(bytes_, ops_),
         library_ms=None,
     )
 
@@ -570,9 +590,10 @@ def _hamming_case(s: Smoke, codes, qcodes) -> dict:
     launches = ops.launch_counts()["hamming"]
     err = s.compare("hamming_distances", got,
                     ops.hamming(codes, qcodes, impl="plain"), exact=True)
+    from repro_torch.launch import roofline as rf
+
     (sn, w), nq = codes.shape, qcodes.shape[0]
-    bytes_ = codes.numel() * 4 + qcodes.numel() * 4 + nq * sn * 4
-    ops_ = nq * sn * w * 3
+    bytes_, ops_ = rf.hamming_counts(nq, sn, w)
     return dict(
         name="hamming_distances", entry="hamming", q=nq, s=sn, w=w,
         launches=launches, max_abs_err=err,
@@ -609,9 +630,11 @@ def _hamming_topk_case(s: Smoke, codes, qcodes, t: int) -> dict:
             and torch.equal(idx.long(), old_idx)):
         raise AssertionError("hamming_topk: differs from the distance kernel, "
                              "the cast and the stable sort")
+    from repro_torch.launch import roofline as rf
+
     dist = ops.hamming(codes, qcodes).to(torch.float32)
     (sn, w), nq = codes.shape, qcodes.shape[0]
-    bytes_ = codes.numel() * 4 + qcodes.numel() * 4 + 2 * nq * t * 4
+    bytes_, ops_ = rf.hamming_topk_counts(nq, sn, w, t)
     return dict(
         name="hamming", entry="hamming_topk", q=nq, s=sn, w=w, t=t,
         max_abs_err=0.0,
@@ -621,7 +644,7 @@ def _hamming_topk_case(s: Smoke, codes, qcodes, t: int) -> dict:
         old_route_call_ms=s.call_ms(old_route, 50),
         plain_ms=s.time_ms(
             lambda: ops.hamming_topk(codes, qcodes, t, impl="plain"), 10),
-        **_bound(bytes_, nq * sn * w * 3),
+        **_bound(bytes_, ops_),
         library_ms=s.time_ms(
             lambda: torch.sort(dist, dim=-1, stable=True), 50),
     )
@@ -635,9 +658,10 @@ def l2_atol(q, x) -> float:
 def _l2_bound(nq: int, n: int, d: int, keep: bool = False) -> dict:
     """Both inputs (and the keep mask) read once, the (Q, N) output written
     once; the product's 2 Q N d flops, the norms' 2 (Q + N) d and the
-    epilogue's 3 Q N."""
-    return _bound((nq * d + n * d + nq * n) * 4 + (n if keep else 0),
-                  2 * nq * n * d + 2 * (nq + n) * d + 3 * nq * n)
+    epilogue's 3 Q N (``roofline.l2_counts``)."""
+    from repro_torch.launch import roofline as rf
+
+    return _bound(*rf.l2_counts(nq, n, d, keep))
 
 
 def _l2_case(s: Smoke, q, x, reps: int, keep=None) -> dict:
@@ -689,6 +713,8 @@ def _page_gather_case(s: Smoke, pages, ids, q, *, recs=None) -> dict:
     torch = s.torch
     from repro_torch.kernels import ops
 
+    from repro_torch.launch.roofline import page_gather_counts
+
     _, cap, d = pages.shape
     ops.reset_launch_counts()
     got = ops.page_gather_l2(pages, ids, q)            # the path, counted
@@ -710,8 +736,7 @@ def _page_gather_case(s: Smoke, pages, ids, q, *, recs=None) -> dict:
         call_ms=s.call_ms(lambda: ops.page_gather_l2(pages, ids, q), 50),
         plain_ms=s.time_ms(lambda: ops.page_gather_l2(pages, ids, q,
                                                       impl="plain"), 10),
-        **_bound(distinct * cap * d * 4 + ids.numel() * 4 + q.numel() * 4
-                 + nq * b * cap * 4, nq * b * cap * d * 3),
+        **_bound(*page_gather_counts(nq, b, cap, d, distinct=distinct)),
         library_ms=None,
     )
 
@@ -3794,6 +3819,287 @@ def run_lm_train(s: Smoke, *, device: str, seed: int,
     return out
 
 
+# ---------------------------------------------------------------- sharding
+# the dry run's cells traced on the host while the card works: granite's
+# training cell and one decode cell
+DRYRUN_CELLS = (("granite-3-2b", "train_4k"), ("granite-3-2b", "decode_32k"))
+SHARD_RTOL = 1e-5                    # rules step against rules=None
+PAGEANN_IDS_AGREE = 0.99
+
+
+def _start_dryrun_lm() -> subprocess.Popen:
+    """The dry run's cells in a host process with no card (it traces on
+    fake tensors over a fake group of 256 ranks); its records are its
+    stdout's JSON lines."""
+    code = (
+        "import json, sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from repro_torch.launch import dryrun\n"
+        f"for a, s in {list(DRYRUN_CELLS)!r}:\n"
+        "    r = dryrun.dryrun_cell(a, s, False, verbose=False)\n"
+        "    r.pop('memory', None)\n"
+        "    print(json.dumps(r), flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish_dryrun_lm(proc: subprocess.Popen, timeout: float) -> list:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"sharding: the dry run failed:\n{err[-3000:]}")
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    bad = [r for r in recs if r.get("status") != "ok"]
+    if len(recs) != len(DRYRUN_CELLS) or bad:
+        raise AssertionError(f"sharding: dry-run cells not ok: {bad or recs}")
+    return recs
+
+
+def _leaf_sums(model) -> dict:
+    """Checksums (float64 sums) of a few parameters, by name."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for name, p in model.named_parameters():
+        if name in ("embed", "final.scale", "layers.0.attn.wq",
+                    "layers.39.mlp.w_down", "layers.1.mlp.w_down"):
+            t = p.full_tensor() if isinstance(p, DTensor) else p
+            out[name] = float(t.detach().double().sum())
+    return out
+
+
+def _rules_step(*, device, seed: int, smoke: bool) -> tuple:
+    """granite-3-2b's full CONFIG, one step with ``rules=None`` (its
+    numbers kept, its state freed: two states do not fit), then the same
+    step from the same init with ``Rules`` on the (1, 1) DeviceMesh of a
+    world-1 NCCL group; each run's second step is timed. Returns the
+    numbers and the sharded state (for the restore)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import Rules
+    from repro_torch.train.step import (
+        init_train_state,
+        make_train_step,
+        shard_train_state,
+    )
+
+    arch = get_arch(TRAIN_ARCH, smoke=smoke)
+    shape = ShapeConfig("sharding", TRAIN_SEQ, TRAIN_BATCH, "train",
+                        num_microbatches=TRAIN_MB)
+    batch = {k: tf.to_tensor(v, device) for k, v in
+             TokenPipeline(arch, shape, seed=seed).batch(0).items()}
+    runs = {}
+    for label in ("plain", "rules"):
+        _reset_peak(device)
+        state = init_train_state(arch, torch.Generator(device=device)
+                                 .manual_seed(seed), device=device)
+        rules = None
+        if label == "rules":
+            rules = Rules(make_host_mesh(device))
+            state = shard_train_state(state, rules)
+        step_fn = make_train_step(arch, shape, rules)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        _sync(device)
+        first_s = time.perf_counter() - t0
+        metrics = {k: float(v) for k, v in m.items()}
+        sums = _leaf_sums(state.params)
+        state, _, walls = _timed_steps(step_fn, state, batch, 1, device)
+        runs[label] = dict(metrics=metrics, leaf_sums=sums,
+                           first_step_s=first_s, step_s=walls[0],
+                           peak_gb=_peak_gb(device))
+        if label == "plain":
+            del state
+    gaps = {k: abs(runs["rules"]["metrics"][k] - runs["plain"]["metrics"][k])
+            / max(abs(runs["plain"]["metrics"][k]), 1e-30)
+            for k in ("loss", "grad_norm")}
+    sum_gaps = {k: abs(runs["rules"]["leaf_sums"][k] - v)
+                for k, v in runs["plain"]["leaf_sums"].items()}
+    out = dict(arch=arch.name, layers=arch.num_layers, d_model=arch.d_model,
+               optimizer=arch.optimizer, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+               microbatches=TRAIN_MB, mesh=[1, 1],
+               backend=torch.distributed.get_backend(),
+               runs=runs, rel_gap=gaps, leaf_sum_abs_gap=sum_gaps,
+               rules_over_plain_step=runs["rules"]["step_s"]
+               / runs["plain"]["step_s"])
+    if not all(g <= SHARD_RTOL for g in gaps.values()):
+        raise AssertionError(f"sharding: the rules step differs from the "
+                             f"plain one: {gaps}")
+    return out, state, rules
+
+
+def _sharded_restore(model, rules, *, device, seed: int) -> dict:
+    """The sharded model's parameters saved, then restored with
+    ``shardings=`` into a fresh sharded model: equal bit for bit."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import param_shardings
+    from repro_torch.train.step import shard_model
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        ckpt.save(str(root), 1, model)
+        save_s = time.perf_counter() - t0
+        target = shard_model(tf.init_params(
+            model.cfg, torch.Generator(device=device).manual_seed(seed + 7),
+            device=device), rules)
+        _sync(device)
+        t0 = time.perf_counter()
+        ckpt.restore(str(root), 1, target, param_shardings(target, rules))
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+        got, want = T.layer_leaves(target), T.layer_leaves(model)
+        if not (all(isinstance(t, DTensor) for t in got)
+                and len(got) == len(want)
+                and all(torch.equal(a.to_local(), b.to_local())
+                        for a, b in zip(got, want))):
+            raise AssertionError("sharding: the restore under shardings= "
+                                 "differs from the saved parameters")
+        del target
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(scope="params", leaves=len(want), save_s=save_s,
+                restore_s=restore_s, equal=True)
+
+
+def run_sharding_lm(s: Smoke, *, device: str, seed: int,
+                    smoke_arch: bool = False,
+                    dryrun: subprocess.Popen | None = None) -> dict:
+    """The ``sharding`` phase's LM stages: the dry run's cells traced on
+    the host (``dryrun``, started earlier so that it overlaps other
+    phases, or started here; joined last), the rules step and the restore
+    under ``shardings=`` on the card."""
+    import torch
+
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.models.sharding import release_world
+
+    out: dict = {}
+    proc = dryrun or _start_dryrun_lm()
+    t_dry = time.perf_counter()
+    try:
+        if str(device).startswith("cuda"):
+            total = torch.cuda.get_device_properties(0).total_memory
+            out["hbm"] = dict(total_memory=total, hbm_bytes=HBM_BYTES,
+                              rel_gap=abs(total - HBM_BYTES) / HBM_BYTES)
+            emit("sharding", stage="hbm", **out["hbm"])
+            if out["hbm"]["rel_gap"] > 0.1:
+                raise AssertionError(f"sharding: the card holds {total} "
+                                     f"bytes, HBM_BYTES says {HBM_BYTES}")
+        t0 = time.perf_counter()
+        out["rules_step"], state, rules = _rules_step(
+            device=device, seed=seed, smoke=smoke_arch)
+        emit("sharding", stage="rules_step", seconds=time.perf_counter() - t0,
+             **out["rules_step"])
+        t0 = time.perf_counter()
+        out["restore"] = _sharded_restore(state.params, rules, device=device,
+                                          seed=seed)
+        emit("sharding", stage="restore", seconds=time.perf_counter() - t0,
+             **out["restore"])
+        del state
+        if str(device).startswith("cuda"):
+            torch.cuda.empty_cache()
+        release_world()
+        recs = _finish_dryrun_lm(proc, timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    keys = ("arch", "shape", "mesh", "status", "trace_s", "devices",
+            "hlo_flops", "hlo_bytes", "collective_bytes",
+            "collective_breakdown", "peak_gib_per_device", "fits_hbm",
+            "compute_s", "memory_s", "collective_s", "bottleneck",
+            "model_flops_per_device", "useful_flops_ratio")
+    out["dryrun_lm"] = [{k: r.get(k) for k in keys} for r in recs]
+    emit("sharding", stage="dryrun_lm", wall_s=time.perf_counter() - t_dry,
+         cells=out["dryrun_lm"])
+    return out
+
+
+def run_sharding_pageann(s: Smoke, ctx: dict, *, device: str,
+                         n_vectors: int | None = None) -> dict:
+    """The ``sharding`` phase's PageANN stage: shard (0, 0) of SIFT100M at
+    its production size, tiled from the HYBRID e2e index, searched with
+    64 queries through the kernels and the plain versions (ids equal for
+    >= 99%, no streamed kernel launched), and the page scan held to its
+    plain version on the shard's highest pages (offsets past 2^31
+    floats). ``n_vectors`` cuts the index for a CPU rehearsal."""
+    import torch
+
+    from repro_torch.launch import dryrun_pageann as dp
+
+    index = ctx["index"]
+    cfg = dp.production_config()
+    geo = dp.shard_geometry(cfg, n_vectors or dp.N_VECTORS)
+    q = torch.from_numpy(ctx["q"])
+    t0 = time.perf_counter()
+    data = dp.tiled_shard(index.data, index.store.capacity, geo["pages"],
+                          cfg.lsh_sample)
+    rec = dp.run(index.data, index.store.capacity, q, data=data,
+                 n_vectors=n_vectors or dp.N_VECTORS)
+    streamed = {k: v for k, v in rec["launches"].items()
+                if k.startswith("page_scan_recs")}
+    if str(device).startswith("cuda"):
+        want = {"page_scan", "pq_adc", "hamming"}
+        if not want <= set(rec["launches"]) or streamed:
+            raise AssertionError(f"sharding: the shard's search launched "
+                                 f"{rec['launches']}")
+    if rec["ids_agree_share"] < PAGEANN_IDS_AGREE:
+        raise AssertionError(f"sharding: kernels and plain agree on ids for "
+                             f"{rec['ids_agree_share']} of the queries")
+    # the page scan on the shard's top pages (past 2^31 floats on the card)
+    pages = geo["pages"]
+    nq, b = 64, cfg.io_batch
+    gen = torch.Generator().manual_seed(s.seed)
+    ids = (pages - 1 - torch.randint(0, min(pages, 4096), (nq, b),
+                                     generator=gen)).to(data.page_recs.device)
+    qd = q[:nq].to(data.page_recs.device)
+    from repro_torch.core import pq as pq_mod
+
+    lut = pq_mod.pq_lut(qd, data.disk_codebooks)
+    row = None
+    if str(device).startswith("cuda"):
+        row = _page_scan_case(s, data.page_recs, ids, qd, lut,
+                              cap=geo["capacity"], dim=dp.DIM,
+                              rp=cfg.page_degree, m=cfg.pq_subspaces,
+                              adc=True, reps=20)
+    keys = ("pages_per_shard", "page_capacity", "record_rows",
+            "page_recs_bytes", "hop_ms", "search_ms", "launches",
+            "launches_per_hop", "mean_hops_run", "max_hops_run",
+            "mean_hops_assumed", "ids_agree_share", "plain_sample",
+            "peak_gib_per_device", "fits_hbm", "hlo_flops", "hlo_bytes",
+            "collective_bytes", "compute_s", "memory_s", "collective_s",
+            "bottleneck", "mean_ios")
+    out = {k: rec.get(k) for k in keys}
+    out.update(page_recs_elements=int(data.page_recs.numel()),
+               top_pages_scan=row, seconds=time.perf_counter() - t0)
+    del data
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+    emit("sharding", stage="dryrun_pageann", **out)
+    return out
+
+
 def filter_exprs(scores, *, full: bool) -> dict:
     """The predicates of the filter phase: numeric bounds at each
     selectivity (quantiles of the score column) and a tag-and-numeric
@@ -3834,9 +4140,21 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
+    started: list = []
+    try:
+        return _main(args, torch, t_start, started)
+    finally:
+        for proc in started:   # the dry run's host process, on a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _main(args, torch, t_start, started: list) -> int:
+    """The phases in order; ``started`` collects the processes it starts."""
     from repro_torch.core import MemoryMode, PageANNConfig
 
-    t_start = time.perf_counter()
     smoke = Smoke(torch, args.seed)
     cfg_h = PageANNConfig(dim=128, build_rounds=1, memory_mode=MemoryMode.HYBRID)
     cfg_m = PageANNConfig(dim=128, build_rounds=1, memory_mode=MemoryMode.MEM_ALL)
@@ -3845,11 +4163,15 @@ def main(argv=None) -> int:
     phase_kernels(smoke, cfg_h, cfg_m, args.n, N_QUERIES)
     phase_sift1m(smoke, cfg_h, cfg_m)
     torch.cuda.empty_cache()
+    # the dry run traces on the host while the LM phases use the card
+    started.append(_start_dryrun_lm())
     lm = run_lm_serve(smoke, device="cuda", seed=args.seed)
     torch.cuda.empty_cache()
     fam = run_lm_families(smoke, device="cuda", seed=args.seed)
     torch.cuda.empty_cache()
     run_lm_train(smoke, device="cuda", seed=args.seed)
+    torch.cuda.empty_cache()
+    run_sharding_lm(smoke, device="cuda", seed=args.seed, dryrun=started[0])
     torch.cuda.empty_cache()
 
     # each path's launches, counted from 0 just before its run: the e2e
@@ -3857,7 +4179,7 @@ def main(argv=None) -> int:
     # streamed searches (page_scan_recs*), the filtered ones (*_masked);
     # each adaptive setting's search is counted on its own as well
     launches, adaptive_launches, baseline_launches = {}, {}, {}
-    sharded_launches = {}
+    sharded_launches, sharding_launches = {}, {}
     for cfg, label in ((cfg_h, "e2e"), (cfg_m, "e2e_memall")):
         hybrid = cfg is cfg_h
         run, ctx = run_e2e(cfg, args.n if hybrid else N_MEMALL,
@@ -3899,6 +4221,9 @@ def main(argv=None) -> int:
             del bl
             sharded_launches = run_sharded(ctx, run, cfg_h, device="cuda",
                                            seed=args.seed)["launches"]
+            torch.cuda.empty_cache()
+            sharding_launches = run_sharding_pageann(
+                smoke, ctx, device="cuda")["launches"]
         del ctx
         torch.cuda.empty_cache()
     run_compaction(cfg_h, device="cuda", seed=args.seed)
@@ -3918,6 +4243,7 @@ def main(argv=None) -> int:
             launches_adaptive=adaptive_launches.get(name, {}),
             launches_baselines=baseline_launches.get(name, 0),
             launches_sharded=sharded_launches.get(name, 0),
+            launches_sharding=sharding_launches.get(name, 0),
             launches_lm_serve=sum(run.get(name, 0) for run in
                                   lm["driver_launches"].values()),
             lm_serve_d2048=_lm_row(lm, name),

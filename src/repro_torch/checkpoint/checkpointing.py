@@ -18,8 +18,17 @@ writes it; reading it back takes the same view in torch, with no
 
 ``restore`` copies into the target tree's own tensors and returns that
 tree: the reference returns new arrays, but at full width a second copy of
-a training state does not fit beside the first. Re-sharding onto another
-mesh (the reference's ``shardings=``) comes with ROADMAP A13d.
+a training state does not fit beside the first.
+
+A sharded state (DTensor leaves, ``train.step.shard_train_state``) is saved
+as full arrays: every rank gathers each leaf (a collective, so every rank
+calls ``save``) and rank 0 writes. ``restore(..., shardings=)`` re-shards
+elastically, as the reference's: ``shardings`` is a tree of the target's
+structure whose leaves are DTensor placements (or None; a Stack's are each
+layer's, as ``models.sharding.param_shardings`` gives them), and each rank
+copies its local slice of the saved full array into the target's DTensor
+shard, so a checkpoint written on one mesh restores onto another. A
+DTensor target restores into its own layout without it.
 """
 from __future__ import annotations
 
@@ -35,15 +44,29 @@ import torch
 from repro_torch import tree as T
 
 
+def _full(t):
+    """A DTensor's full value (gathered on every rank); a tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _host(leaf) -> torch.Tensor:
     """A host copy of ``leaf`` (a Stack stacked, tensors copied even when
     they are on the CPU already, so later in-place updates miss it)."""
     if isinstance(leaf, T.Stack):
         out = torch.empty(leaf.shape, dtype=leaf.dtype, device="cpu")
         for i, t in enumerate(leaf):
-            out[i].copy_(t.detach())
+            out[i].copy_(_full(t.detach()))
         return out
-    return torch.as_tensor(leaf).detach().to("cpu", copy=True)
+    return _full(torch.as_tensor(leaf).detach()).to("cpu", copy=True)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -81,7 +104,11 @@ def _write(ckpt_dir: str, step: int, named) -> str:
 
 def save(ckpt_dir: str, step: int, tree) -> str:
     """Synchronous atomic save, one leaf on the host at a time. Returns the
-    committed directory."""
+    committed directory (rank 0 writes; every rank gathers)."""
+    if not _writer():
+        for _ in _host_leaves(tree):
+            pass
+        return os.path.join(ckpt_dir, f"step_{step}")
     return _write(ckpt_dir, step, _host_leaves(tree))
 
 
@@ -105,16 +132,72 @@ def _load(final: str, entry: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _copy_in(dst, src: torch.Tensor, sharding=None) -> None:
+    """``src`` (the full array) into ``dst``: into a DTensor its local
+    slice under the placements ``sharding`` (default its own), into a
+    tensor the whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import local_chunk
+
+    if isinstance(dst, DTensor):
+        pl = tuple(sharding) if sharding is not None else dst.placements
+        if pl != tuple(dst.placements):
+            raise ValueError(f"target laid out as {dst.placements}, "
+                             f"shardings ask for {pl}")
+        dst.to_local().copy_(local_chunk(src, dst.device_mesh, pl))
+    elif sharding is not None and not all(p.is_replicate()
+                                          for p in sharding):
+        raise ValueError("shardings given for a target that is not laid "
+                         "out (train.step.shard_train_state)")
+    else:
+        dst.copy_(src)
+
+
+def _sharding_leaves(shardings, target_tree) -> list:
+    """The placements (or None) of each leaf of ``target_tree``, in
+    flatten order."""
+    if shardings is None:
+        return [None] * len(T.flatten(target_tree))
+    out = []
+
+    def walk(tree, sh):
+        if tree is None:
+            return
+        if isinstance(tree, T.Stack) or isinstance(tree, torch.Tensor):
+            out.append(sh)
+        elif hasattr(tree, "param_tree"):
+            walk(tree.param_tree(), sh)
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], None if sh is None else sh[k])
+        elif hasattr(tree, "_fields"):
+            for f in tree._fields:
+                walk(getattr(tree, f), None if sh is None else getattr(sh, f))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, None if sh is None else sh[i])
+        else:
+            out.append(sh)
+
+    walk(target_tree, shardings)
+    return out
+
+
 @torch.no_grad()
-def restore(ckpt_dir: str, step: int, target_tree):
+def restore(ckpt_dir: str, step: int, target_tree, shardings=None):
     """Restore step ``step`` into the tensors of ``target_tree`` (each cast
-    to its target's dtype) and return the tree. A missing leaf raises
+    to its target's dtype) and return the tree. ``shardings`` (the
+    target's structure, placements leaves or None)
+    re-shards elastically onto the target's mesh. A missing leaf raises
     ``KeyError``, a shape that differs ``ValueError``."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(final, "MANIFEST.json")) as f:
         manifest = json.load(f)
     by_name = {e["name"]: e for e in manifest["leaves"]}
-    for path, leaf in T.flatten(target_tree):
+    flat = T.flatten(target_tree)
+    for (path, leaf), sh in zip(flat, _sharding_leaves(shardings,
+                                                       target_tree)):
         name = T.name(path)
         if name not in by_name:
             raise KeyError(f"checkpoint missing leaf '{name}'")
@@ -124,9 +207,9 @@ def restore(ckpt_dir: str, step: int, target_tree):
             raise ValueError(f"{name}: ckpt {tuple(src.shape)} vs target {want}")
         if isinstance(leaf, T.Stack):
             for i, t in enumerate(leaf):
-                t.copy_(src[i])
+                _copy_in(t, src[i].to(t.dtype), sh)
         else:
-            leaf.copy_(src)
+            _copy_in(leaf, src.to(leaf.dtype), sh)
     return target_tree
 
 
@@ -158,7 +241,9 @@ class AsyncCheckpointer:
     def submit(self, step: int, tree):
         if self._err:
             raise self._err
-        self._q.put((step, list(_host_leaves(tree))))
+        named = list(_host_leaves(tree))
+        if _writer():
+            self._q.put((step, named))
 
     def wait(self):
         self._q.join()

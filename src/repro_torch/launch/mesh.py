@@ -11,6 +11,12 @@ A mesh may name one device more than once, so one card can rehearse an
 S-shard mesh; ``distinct_devices`` says how many cards it really spans.
 Meshes are frozen and compare by value (the serving engine keys its
 compile-cache geometry by them).
+
+``make_production_mesh`` is the training/serving mesh of the LM zoo: a
+``torch.distributed.DeviceMesh`` of ``(16, 16)`` ``("data", "model")``, or
+``(2, 16, 16)`` with ``"pod"`` in front, over the default process group (a
+real ``torchrun`` world, or the dry run's fake one). The hardware
+constants below are the roofline's, for an H100 SXM.
 """
 from __future__ import annotations
 
@@ -98,3 +104,34 @@ def make_host_mesh(device: str | torch.device = "cuda") -> Mesh:
     """The (1, 1) ``("data", "model")`` mesh on one device: the same code
     path as a real mesh, on the card by default."""
     return make_mesh((1, 1), ("data", "model"), devices=[resolve_device(device)])
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production ``DeviceMesh`` over the default process group, whose
+    world size must be 256 (512 with ``multi_pod``): one rank per GPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"the production mesh needs a process group of {need} ranks "
+            "(torchrun, or the dry run's fake group); none is initialized")
+    if dist.get_world_size() != need:
+        raise RuntimeError(
+            f"the {shape} production mesh needs {need} ranks, the process "
+            f"group has {dist.get_world_size()}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+# H100 SXM data-sheet constants used by the roofline (per GPU).
+PEAK_FLOPS_BF16 = 989e12      # dense bf16 tensor-core peak
+HBM_BW = 3.35e12              # bytes/s of HBM3
+HBM_BYTES = 80 * 10**9        # 80 GB of HBM3
+# One collective rate, as the reference keeps one: the 16-wide model axis
+# spans two 8-GPU NVLink nodes, so its collectives run at one NDR
+# 400 Gb/s InfiniBand link per GPU (50e9 bytes/s), not at NVLink's rate.
+ICI_BW = 50e9

@@ -15,7 +15,11 @@ operands first: a product of two bfloat16 values is exact in float32.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.models.sharding import contiguous_stride
 
 NEG_INF = -1e30
 
@@ -79,6 +83,12 @@ def blockwise_attention(
     chunks that are entirely masked for a q chunk, as the reference's
     forward-only path does; masked contributions are exact zeros either way.
     """
+    local = _per_device(q, k, v)
+    if local is not None:
+        (ql, kl, vl), wrap = local
+        return wrap(blockwise_attention(
+            ql, kl, vl, causal=causal, window=window, q_chunk=q_chunk,
+            kv_chunk=kv_chunk, q_offset=q_offset, fwd_only=fwd_only))
     ch = _Chunks(q, k, v, q_chunk, kv_chunk)
     blocks = []
     for iq in range(ch.nq):
@@ -95,6 +105,74 @@ def blockwise_attention(
                             q_offset=q_offset)
         blocks.append(ch.finish(state))
     return ch.assemble(blocks, q.dtype)
+
+
+def _per_device(q, k, v):
+    """For DTensor q, k, v: their local blocks, laid out batch and heads
+    over the mesh and whole along the sequence and head_dim (attention is
+    independent per sequence and head, so each device attends its own
+    block), and the function that makes the local output a DTensor again;
+    None for plain tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return None
+    k, v = _kv_for(q, k, v)
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+               and (p.dim == 0 or k.shape[2] % q.device_mesh.size(j) == 0)
+               else Replicate() for j, p in enumerate(q.placements))
+    mesh = q.device_mesh
+    q, k, v = (t.redistribute(mesh, pl) if tuple(t.placements) != pl else t
+               for t in (q, k, v))
+
+    def wrap(out):
+        shape = (*q.shape[:3], out.shape[-1])
+        return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
+    return (q.to_local(), k.to_local(), v.to_local()), wrap
+
+
+def _batch_only(q):
+    """A DTensor query (B, H, hd) kept sharded along its batch only (its
+    heads whole on every device, partial sums added), so that grouping its
+    heads per KV head and flattening them with the batch stay plain
+    shards against a cache split along its sequence; a plain tensor as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return q
+    pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in q.placements)
+    return q if pl == tuple(q.placements) else q.redistribute(
+        q.device_mesh, pl)
+
+
+def _kv_for(q, k, v):
+    """k, v as the q heads need them. Where q is a DTensor whose heads are
+    sharded over a mesh dim that does not divide the KV heads (GQA with
+    fewer KV heads than the 'model' axis), each KV head is repeated for its
+    group of q heads and laid out as q is: the same values and products,
+    which a DTensor could not otherwise group."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(q, DTensor):
+        return k, v
+    H, KvH = q.shape[2], k.shape[2]
+    if H == KvH or not any(
+            isinstance(p, Shard) and p.dim == 2 and KvH % q.device_mesh.size(j)
+            for j, p in enumerate(q.placements)):
+        return k, v
+
+    def expand(t):
+        B, T, _, hd = t.shape
+        t = t[:, :, :, None, :].expand(B, T, KvH, H // KvH, hd)
+        return t.reshape(B, T, H, hd).redistribute(q.device_mesh,
+                                                   q.placements)
+
+    return expand(k), expand(v)
 
 
 class _Chunks:
@@ -185,6 +263,7 @@ def decode_attention(q1, k_cache, v_cache, cache_len, *, window: int = 0):
     B, H, hd = q1.shape
     S, KvH = k_cache.shape[1], k_cache.shape[2]
     G = H // KvH
+    q1 = _batch_only(q1)
     scale = hd ** -0.5
     qr = (q1 * scale).reshape(B, KvH, G, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qr.to(torch.float32),
@@ -210,6 +289,12 @@ def pairscan_attention(
     online-softmax state of its q chunk. The reference's order of updates,
     masks and exact zeros, so the same numbers as ``blockwise_attention``.
     """
+    local = _per_device(q, k, v)
+    if local is not None:
+        (ql, kl, vl), wrap = local
+        return wrap(pairscan_attention(
+            ql, kl, vl, causal=causal, window=window, q_chunk=q_chunk,
+            kv_chunk=kv_chunk, q_offset=q_offset))
     ch = _Chunks(q, k, v, q_chunk, kv_chunk)
     pairs = []
     for iq in range(ch.nq):
@@ -244,8 +329,8 @@ def silu(x):
 
 def gated_mlp(params, x):
     """SwiGLU MLP. x: (..., d)."""
-    h = silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    h = silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
+    return dense(h, params["w_down"])
 
 
 # ------------------------------------------------------------------ inits ---
@@ -291,7 +376,67 @@ def _project(x, w):
     """``einsum("btd,dhx->bthx", x, w)`` as one matrix product: a 3-D by
     2-D ``@`` runs as ``aten.mm``, which a ``remat="dots"`` policy keeps
     (an einsum runs as a one-batch ``aten.bmm``)."""
+    if _is_dtensor(x):
+        return dense(x, w)
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def dense(x, w, c: int = 1):
+    """``x @ w`` contracting x's last ``c`` dims with w's first ``c``: for
+    plain tensors as one matrix product; for DTensors (``forward_train``
+    under rules) each device multiplies its own blocks, as GSPMD
+    partitions a weight product. The weight is gathered over the mesh
+    dims that shard x's batch (FSDP's all-gather), x is cut along its
+    contracted dims where the weight's are sharded (the output is then a
+    partial sum on those mesh dims), and the output is sharded where the
+    weight's other dims are. The gradients take the matching layouts: x's
+    is partial where the weight's output dims are sharded, the weight's
+    where x's batch is."""
+    if not _is_dtensor(x):
+        # (contracted, out); a 2-D weight as it is (a reshape would copy a
+        # transposed tied embedding)
+        wm = w if w.ndim == 2 else w.reshape(-1, math.prod(w.shape[c:]))
+        y = (x.flatten(-c) if c > 1 else x) @ wm
+        return y.unflatten(-1, w.shape[c:]) if w.ndim > c + 1 else y
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    nb = x.ndim - c                       # x's batch dims
+    x_pl = tuple(x.placements)
+    batch_dims = {j for j, p in enumerate(x_pl)
+                  if isinstance(p, Shard) and p.dim < nb}
+    w_pl = tuple(Replicate() if j in batch_dims else p
+                 for j, p in enumerate(w.placements))
+    contract = {j: p.dim for j, p in enumerate(w_pl)
+                if isinstance(p, Shard) and p.dim < c}
+    out = {j: p.dim for j, p in enumerate(w_pl)
+           if isinstance(p, Shard) and p.dim >= c}
+    x_to = tuple(x_pl[j] if j in batch_dims else
+                 Shard(nb + contract[j]) if j in contract else Replicate()
+                 for j in range(mesh.ndim))
+    y_pl = tuple(x_pl[j] if j in batch_dims else
+                 Partial() if j in contract else
+                 Shard(nb + out[j] - c) if j in out else Replicate()
+                 for j in range(mesh.ndim))
+    x = x if x_to == x_pl else x.redistribute(mesh, x_to)
+    w = w if w_pl == tuple(w.placements) else w.redistribute(mesh, w_pl)
+    # a device's contribution to x's gradient is partial where the weight's
+    # output dims are sharded; to the weight's where x's batch is
+    x_l = x.to_local(grad_placements=tuple(
+        Partial() if j in out else p for j, p in enumerate(x_to)))
+    w_l = w.to_local(grad_placements=tuple(
+        Partial() if j in batch_dims else p for j, p in enumerate(w_pl)))
+    y_l = dense(x_l, w_l, c)
+    shape = torch.Size((*x.shape[:nb], *w.shape[c:]))
+    return DTensor.from_local(
+        y_l, mesh, y_pl, run_check=False, shape=shape,
+        stride=contiguous_stride(shape))
 
 
 def attention_qkv(params, x, cfg, positions=None, positions3=None):
@@ -315,4 +460,6 @@ def attention_qkv(params, x, cfg, positions=None, positions3=None):
 
 def attention_out(params, attn):
     wo = params["wo"]
+    if _is_dtensor(attn):
+        return dense(attn, wo, 2)
     return attn.flatten(-2) @ wo.reshape(-1, wo.shape[-1])

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense, dense_init
 
 _C = 8.0
 _f32 = torch.float32
@@ -95,13 +95,39 @@ def _scan(elems):
 
 
 def rglru_scan(params, x, h0=None):
-    """x: (B, T, w). Returns (y, h_T), h_T in float32."""
+    """x: (B, T, w). Returns (y, h_T), h_T in float32. On DTensors
+    (``forward_train`` under rules) each device scans its own sequences
+    and channels (the recurrence is elementwise over both)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and h0 is None:
+        return _scan_per_device(params, x)
     a, gx = _gates(params, x)          # (B, T, w) each
     if h0 is not None:
         # fold the carried state in as a virtual timestep contribution
         gx = torch.cat([gx[:, :1] + a[:, :1] * h0[:, None], gx[:, 1:]], dim=1)
     _, Y = _scan((a, gx))
     return Y.to(x.dtype), Y[:, -1]
+
+
+def _scan_per_device(params, x):
+    from repro_torch.models.sharding import layout_of, on_local, split_layout
+
+    mesh = x.device_mesh
+    batch, chan = split_layout(x, x.shape[2])
+    nd = mesh.ndim
+    xs = layout_of(nd, {**{j: 0 for j in batch}, **{j: 2 for j in chan}})
+    vec = layout_of(nd, {j: 0 for j in chan})
+    vec_grad = layout_of(nd, {j: 0 for j in chan}, batch)
+    names = ("rg_wa", "rg_wx", "rg_a_param")
+
+    def local(x, *vecs):
+        return rglru_scan(dict(zip(names, vecs)), x)
+
+    return on_local(
+        local, mesh,
+        [(x, xs, xs)] + [(params[k], vec, vec_grad) for k in names],
+        [xs, layout_of(nd, {**{j: 0 for j in batch}, **{j: 1 for j in chan}})])
 
 
 def rglru_step(params, x1, h):
@@ -141,14 +167,14 @@ def _gelu(x):
 
 def recurrent_block(params, u, cfg, state=None):
     """Full Griffin recurrent block. u: (B, T, d). Returns (out, new_state)."""
-    proj = u @ params["rg_in"]
+    proj = dense(u, params["rg_in"])
     x, gate = torch.chunk(proj, 2, dim=-1)
     conv_state = None if state is None else state["conv"]
     h0 = None if state is None else state["h"]
     x, new_conv = _conv(params, x, conv_state)
     y, hT = rglru_scan(params, x, h0)
     y = y * _gelu(gate)
-    return y @ params["rg_out"], {"conv": new_conv, "h": hT}
+    return dense(y, params["rg_out"]), {"conv": new_conv, "h": hT}
 
 
 def recurrent_block_step(params, u1, cfg, state):

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import dense_init, silu
+from repro_torch.models.layers import dense, dense_init, silu
 
 _f32 = torch.float32
 
@@ -48,7 +48,7 @@ def init_ssm(generator, cfg, dtype, device=None) -> dict:
 
 def _split_proj(params, u, cfg):
     din, n = cfg.d_inner, cfg.ssm_state
-    zxbcdt = u @ params["ssm_in"]
+    zxbcdt = dense(u, params["ssm_in"])
     return (zxbcdt[..., :din], zxbcdt[..., din:2 * din + 2 * n],
             zxbcdt[..., 2 * din + 2 * n:])
 
@@ -74,7 +74,13 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
     x: (b, T, h, p); dt: (b, T, h); A: (h,) negative decay rates;
     B, C: (b, T, n). Returns y: (b, T, h, p), final_state: (b, h, p, n).
+    On DTensors (``forward_train`` under rules) each device scans its own
+    sequences and heads (the scan is independent along both).
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _ssd_per_device(x, dt, A, B, C, chunk)
     b, T, h, p = x.shape
     n = B.shape[-1]
     pad = -T % chunk
@@ -127,6 +133,26 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, state
 
 
+def _ssd_per_device(x, dt, A, B, C, chunk):
+    from repro_torch.models.sharding import layout_of, on_local, split_layout
+
+    mesh = x.device_mesh
+    batch, heads = split_layout(x, x.shape[2])
+    nd = mesh.ndim
+    bh = {**{j: 0 for j in batch}, **{j: 2 for j in heads}}
+    xs = layout_of(nd, bh)
+    a_pl = layout_of(nd, {j: 0 for j in heads})
+    bc_pl = layout_of(nd, {j: 0 for j in batch})
+    return on_local(
+        lambda *a: ssd_chunked(*a, chunk), mesh,
+        [(x, xs, xs), (dt, xs, xs),
+         (A, a_pl, layout_of(nd, {j: 0 for j in heads}, batch)),
+         (B, bc_pl, layout_of(nd, {j: 0 for j in batch}, heads)),
+         (C, bc_pl, layout_of(nd, {j: 0 for j in batch}, heads))],
+        [xs, layout_of(nd, {**{j: 0 for j in batch},
+                            **{j: 1 for j in heads}})])
+
+
 def _gated_norm(params, y, z):
     y = y * silu(z)
     return y * torch.rsqrt(
@@ -151,7 +177,7 @@ def ssm_forward(params, u, cfg, state=None):
     y, ssd_state = ssd_chunked(x, dt, A, B, C, cfg.ssm_chunk)
     y = y + x * params["D"][None, None, :, None]
     y = _gated_norm(params, y.reshape(bsz, T, din), z)
-    return y @ params["ssm_out"], {"conv": new_conv, "ssd": ssd_state}
+    return dense(y, params["ssm_out"]), {"conv": new_conv, "ssd": ssd_state}
 
 
 def ssm_decode_step(params, u1, cfg, state):

@@ -32,7 +32,10 @@ each layer's weights in the activation dtype (the router stays float32),
 as the reference's ``_cast_layer_params`` does; the port casts each weight
 as a product reads it, never a whole layer at once (one full-width
 kimi-k2 layer's experts are 33.8 GB in bfloat16). ``decode_step`` casts
-nothing, as the reference's. Sharding rules come with ROADMAP A13d.
+nothing, as the reference's. ``forward_train(rules=)`` runs on a model
+whose parameters are DTensors (``train.step.shard_train_state``): the
+activations are held to batch-over-dp at the embedding output and at every
+layer boundary, as the reference constrains them.
 
 ``forward_train`` is differentiable: a training model's parameters carry
 ``requires_grad`` (``repro_torch.train.step.init_train_state``), a serving
@@ -58,12 +61,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.context import use_rules
+from repro_torch.models.context import act_shard, current_rules, use_rules
 from repro_torch.models.layers import (
     attention_out,
     attention_qkv,
     blockwise_attention,
     decode_attention,
+    dense,
     dense_init,
     gated_mlp,
     init_attention,
@@ -71,6 +75,7 @@ from repro_torch.models.layers import (
     pairscan_attention,
     rms_norm,
 )
+from repro_torch.models.sharding import contiguous_stride
 from repro_torch.tree import Stack
 
 FRONTEND_DIM = 512  # stubbed modality frontends emit this width
@@ -99,7 +104,11 @@ def to_tensor(a, device=None) -> torch.Tensor:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """The inverse of ``to_tensor``: bfloat16 comes back as
-    ``ml_dtypes.bfloat16``."""
+    ``ml_dtypes.bfloat16``; a DTensor as its full value."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes
@@ -453,15 +462,15 @@ def _dense_layer_fwd(p, x, cfg, positions, positions3):
             q, k, v, causal=cfg.causal, window=window,
             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
             fwd_only=cfg.attn_fwd_only)
-    x = x + attention_out(p["attn"], attn)
+    x = x + _batch_layout(attention_out(p["attn"], attn))
     xn2 = rms_norm(x, p["scale2"], cfg.norm_eps)
     if cfg.family == "moe" and "moe" in p:
-        ff = moe_mod.moe_layer(p["moe"], xn2, cfg)
+        ff = _batch_layout(moe_mod.moe_layer(p["moe"], xn2, cfg))
         aux = moe_mod.moe_aux_loss(p["moe"], xn2, cfg)
         if cfg.dense_residual:
-            ff = ff + gated_mlp(p["mlp"], xn2)
+            ff = ff + _batch_layout(gated_mlp(p["mlp"], xn2))
     else:
-        ff = gated_mlp(p["mlp"], xn2)
+        ff = _batch_layout(gated_mlp(p["mlp"], xn2))
         aux = _zero(x)
     return x + ff, aux
 
@@ -470,16 +479,24 @@ def _ssm_layer_fwd(p, x, cfg):
     p = _cast_layer_params(p, cfg)
     xn = rms_norm(x, p["scale"], cfg.norm_eps)
     out, _ = ssm_mod.ssm_forward(p["ssm"], xn, cfg)
-    return x + out, _zero(x)
+    return x + _batch_layout(out), _zero(x)
 
 
 def _rec_layer_fwd(p, x, cfg):
     p = _cast_layer_params(p, cfg)
     xn = rms_norm(x, p["scale"], cfg.norm_eps)
     out, _ = rg_mod.recurrent_block(p["rec"], xn, cfg)
-    x = x + out
+    x = x + _batch_layout(out)
     xn2 = rms_norm(x, p["scale2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], xn2), _zero(x)
+    return x + _batch_layout(gated_mlp(p["mlp"], xn2)), _zero(x)
+
+
+def _batch_layout(y):
+    """A sub-block's output, under rules, in the residual stream's layout
+    (batch over dp, the rest whole) before it is added: a row-parallel
+    product's partial sums are all-reduced there rather than scattered over
+    the sequence."""
+    return act_shard(y, "dp", None, None)
 
 
 def _layer_fwd(kind, layer, x, cfg, positions, positions3):
@@ -514,24 +531,78 @@ def _remat(fn, cfg):
             create_selective_checkpoint_contexts, _save_weight_products)
     elif cfg.remat != "full":
         raise ValueError(f"remat {cfg.remat!r}: 'none', 'dots' or 'full'")
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    def run(*args):
+        # the backward pass recomputes outside forward_train's context:
+        # the recomputation runs under the rules the forward ran under
+        rules = current_rules()
+
+        def body(*a):
+            with use_rules(rules):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 def _matmul(x, w):
     """``x @ w`` in the promoted dtype, as ``jnp.matmul`` promotes."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
+    return dense(x.to(dt), w.to(dt))
 
 
 # ------------------------------------------------------------ forward (train)
 def embed_inputs(model: Transformer, batch: dict, cfg: ArchConfig):
     if cfg.embed_inputs:
         tokens = torch.as_tensor(batch["tokens"], device=model.device).long()
-        x = model.embed[tokens]
+        x = _lookup(model.embed, tokens)
     else:
         w = model.in_proj_frontend
-        x = to_tensor(batch["embeds"], model.device).to(w.dtype) @ w
+        x = dense(to_tensor(batch["embeds"], model.device).to(w.dtype), w)
     return x.to(_dtype(cfg.activation_dtype))
+
+
+def _lookup(embed, tokens):
+    """``embed[tokens]``. For a DTensor table each device looks up its own
+    block, as a vocab-parallel embedding does: the table is gathered over
+    the mesh dims that shard the tokens (FSDP's all-gather) and kept
+    vocab-sharded over the others, where each device contributes the rows
+    its block holds (zeros elsewhere) and the partial sums add."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    mesh = embed.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    tp = tuple(tokens.placements)
+    batch = {j for j, p in enumerate(tp) if isinstance(p, Shard)}
+    w_pl = tuple(Shard(0) if j not in batch and isinstance(p, Shard)
+                 and p.dim == 0 else Replicate()
+                 for j, p in enumerate(embed.placements))
+    vocab = {j for j, p in enumerate(w_pl) if isinstance(p, Shard)}
+    w = embed if w_pl == tuple(embed.placements) else \
+        embed.redistribute(mesh, w_pl)
+    w_l = w.to_local(grad_placements=tuple(
+        Partial() if j in batch else p for j, p in enumerate(w_pl)))
+    ids = tokens.to_local()
+    if vocab:
+        from repro_torch.models.sharding import shard_range
+
+        lo, n = shard_range(embed.shape[0], mesh, w_pl, 0)
+        hit = (ids >= lo) & (ids < lo + n)
+        out = torch.where(hit[..., None],
+                          w_l[(ids - lo).clamp(0, max(n - 1, 0))], 0.0)
+    else:
+        out = w_l[ids]
+    pl = tuple(tp[j] if j in batch else Partial() if j in vocab
+               else Replicate() for j in range(mesh.ndim))
+    shape = torch.Size((*tokens.shape, embed.shape[1]))
+    return DTensor.from_local(
+        out, mesh, pl, run_check=False, shape=shape,
+        stride=contiguous_stride(shape))
 
 
 def unembed(model: Transformer, x, cfg: ArchConfig):
@@ -547,9 +618,14 @@ def forward_train(model: Transformer, batch: dict, cfg: ArchConfig,
                   rules=None):
     """batch: tokens (B,T) [or embeds (B,T,F)], optional positions (B,T),
     optional positions3 (3,B,T). Returns (logits (B, T, V_pad), aux_loss):
-    aux is the MoE load-balancing loss summed over layers, 0 elsewhere."""
+    aux is the MoE load-balancing loss summed over layers, 0 elsewhere.
+
+    ``rules`` (``models.sharding.Rules``) pins activation layouts: batch
+    over 'dp' at the embed output and at every layer boundary."""
+    constrain = ((lambda t: rules.shard(t, "dp", None, None))
+                 if rules is not None else (lambda t: t))
     with use_rules(rules):
-        x = embed_inputs(model, batch, cfg)
+        x = constrain(embed_inputs(model, batch, cfg))
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -581,6 +657,7 @@ def forward_train(model: Transformer, batch: dict, cfg: ArchConfig,
             block = remat(block_fwd)
             for j in range(nb):
                 x, a = block(x, j)
+                x = constrain(x)
                 aux = aux + a
             for name, layer in model.tail.items():
                 x, a = fwd(name.split("_")[-1], layer, x)
@@ -590,6 +667,7 @@ def forward_train(model: Transformer, batch: dict, cfg: ArchConfig,
             body = remat(lambda x, layer: fwd(kind, layer, x))
             for layer in model.layers:
                 x, a = body(x, layer)
+                x = constrain(x)
                 aux = aux + a
         x = rms_norm(x, model.final["scale"], cfg.norm_eps)
         logits = unembed(model, x, cfg)
@@ -598,11 +676,19 @@ def forward_train(model: Transformer, batch: dict, cfg: ArchConfig,
 
 def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig,
             aux_weight: float = 0.01, rules=None):
+    with use_rules(rules):
+        return _loss(model, batch, cfg, aux_weight, rules)
+
+
+def _loss(model, batch, cfg, aux_weight, rules):
     logits, aux = forward_train(model, batch, cfg, rules=rules)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    if rules is None:
+        gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    else:
+        gold = _gold_sharded(logits, labels)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)
@@ -610,6 +696,36 @@ def loss_fn(model: Transformer, batch: dict, cfg: ArchConfig,
         mask = torch.as_tensor(mask, device=logits.device).to(torch.float32)
     nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll + aux_weight * aux, (nll, aux)
+
+
+def _gold_sharded(logits, labels):
+    """``take_along_dim(logits, labels)`` for DTensor logits whose vocab
+    may be sharded: each device picks the labels that fall in its own
+    vocab block (a masked row sum: one term, so exact) and the blocks'
+    partial sums add over the vocab's mesh dims; the logits are never
+    gathered."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.models.sharding import shard_range, to_layout
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    if any(isinstance(p, Partial) for p in logits.placements):
+        logits = logits.redistribute(mesh, tuple(
+            Replicate() if isinstance(p, Partial) else p
+            for p in logits.placements))
+    lp = tuple(logits.placements)
+    rows = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                 else p for p in lp)
+    labels = to_layout(labels, mesh, rows).to_local()
+    lo, n = shard_range(logits.shape[-1], mesh, lp, last)
+    hit = labels[..., None] == torch.arange(lo, lo + n, device=labels.device)
+    gold = torch.where(hit, logits.to_local(), 0.0).sum(-1)
+    out_pl = tuple(Partial() if isinstance(p, Shard) and p.dim == last else p
+                   for p in lp)
+    shape = logits.shape[:-1]
+    return DTensor.from_local(
+        gold, mesh, out_pl, run_check=False, shape=shape,
+        stride=contiguous_stride(shape))
 
 
 # --------------------------------------------------------------- serving ----
@@ -667,8 +783,8 @@ def _attn_decode(p, x1, cache, pos: int, cfg, positions3=None):
     S = kc.shape[1]
     ring = cfg.family == "hybrid" and cfg.window
     write = pos % S if ring else pos
-    kc[:, write] = k[:, 0].to(kc.dtype)
-    vc[:, write] = v[:, 0].to(vc.dtype)
+    _write_slot(kc, write, k[:, 0])
+    _write_slot(vc, write, v[:, 0])
     # the ring buffer already bounds the window
     clen = min(pos + 1, S) if ring else pos + 1
     attn = decode_attention(q[:, 0], kc, vc, clen)
@@ -681,6 +797,31 @@ def _attn_decode(p, x1, cache, pos: int, cfg, positions3=None):
     else:
         ff = gated_mlp(p["mlp"], xn2)
     return x1 + ff
+
+
+def _write_slot(cache, pos: int, value) -> None:
+    """``cache[:, pos] = value`` in the cache's dtype. For a DTensor cache
+    (its sequence split over 'model', split-KV) the device that holds slot
+    ``pos`` writes it into its own block, from the value summed and laid
+    out as the cache's batch and heads first (a partial sum rounded to
+    bfloat16 piece by piece would not be the sum's rounding)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = value.to(cache.dtype)
+        return
+    from repro_torch.models.sharding import shard_range
+
+    mesh = cache.device_mesh
+    seq = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 1
+                else Replicate() for p in cache.placements)
+    rest = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+                 if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in cache.placements)
+    value = value.redistribute(mesh, rest).to_local()
+    start, length = shard_range(cache.shape[1], mesh, seq, 0)
+    if start <= pos < start + length:
+        cache.to_local()[:, pos - start] = value.to(cache.dtype)
 
 
 def _store(cache: dict, new: dict) -> None:
@@ -735,7 +876,7 @@ def decode_step(model: Transformer, cache: dict, token, pos: int,
         if positions3 is not None:
             positions3 = torch.as_tensor(positions3, device=dev)
         if cfg.embed_inputs:
-            x1 = model.embed[torch.as_tensor(token, device=dev).long()]
+            x1 = _lookup(model.embed, torch.as_tensor(token, device=dev).long())
         else:
             x1 = to_tensor(token, dev)
         if cfg.family == "hybrid":

@@ -261,9 +261,36 @@ def test_preemption_checkpoints_the_step_it_stopped_at(tmp_path, monkeypatch):
     assert jckpt.latest_step(str(tmp_path / "ref")) == 20   # C7
 
 
-def test_production_path_names_a13d():
-    with pytest.raises(NotImplementedError, match="A13d"):
-        train.main(["--arch", "granite-3-2b", "--steps", "1"], device="cpu")
+def test_production_build_returns_production_mesh_and_rules():
+    """Without ``--smoke`` ``build`` takes ``SHAPES[--shape]``, the
+    production mesh over the default process group (here the dry run's
+    fake world of 256, or 512 with ``--multi-pod``) and ``Rules``; a world
+    of another size is refused by name."""
+    import argparse
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.models.sharding import Rules
+
+    def args(**kw):
+        return argparse.Namespace(**{**dict(
+            arch="granite-3-2b", shape="train_4k", smoke=False,
+            multi_pod=False, seq_len=128, batch=8, microbatches=2), **kw})
+
+    with fake_world(256):
+        arch, shape, mesh, rules = train.build(args(), "cpu")
+        assert arch == get_arch("granite-3-2b") and shape == SHAPES["train_4k"]
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert tuple(mesh.shape) == (16, 16)
+        assert isinstance(rules, Rules) and rules.dp == ("data",)
+        assert rules.device_mesh is mesh
+        with pytest.raises(RuntimeError, match="512 ranks"):
+            train.build(args(multi_pod=True), "cpu")
+    with fake_world(512):
+        _, _, mesh, rules = train.build(args(multi_pod=True,
+                                             shape="prefill_32k"), "cpu")
+        assert tuple(mesh.shape) == (2, 16, 16)
+        assert rules.dp == ("pod", "data")
 
 
 def test_driver_flags_match_the_reference():

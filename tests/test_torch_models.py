@@ -407,11 +407,33 @@ def test_vocab_padding_masks_logits():
     assert (logits[..., 100:] <= -1e29).all()
 
 
-def test_sharding_rules_name_a13d():
-    cfg = get_arch("granite-3-2b", smoke=True)
-    model = tf.init_params(cfg, _gen(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13d"):
-        tf.forward_train(model, _batch(cfg, 1, 4, seed=0), cfg, rules=object())
+@pytest.mark.parametrize("arch_id", ["granite-3-2b", "arctic-480b"])
+def test_forward_train_with_rules_on_one_device_equals_no_rules(arch_id):
+    """``forward_train(rules=)`` on the (1, 1) mesh of a world of one gloo
+    rank (the model's parameters DTensors) equals ``rules=None``; the
+    world is closed after."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import Rules, release_world
+    from repro_torch.train.step import shard_model
+
+    cfg = get_arch(arch_id, smoke=True)
+    batch = _batch(cfg, 2, 8, seed=0)
+    want, want_aux = tf.forward_train(tf.init_params(cfg, _gen(0),
+                                                     device="cpu"), batch, cfg)
+    rules = Rules(make_host_mesh("cpu"))
+    try:
+        model = shard_model(tf.init_params(cfg, _gen(0), device="cpu"), rules)
+        assert isinstance(model.final["scale"], DTensor)
+        got, aux = tf.forward_train(model, batch, cfg, rules=rules)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(aux.full_tensor() if isinstance(
+            aux, DTensor) else aux, want_aux, rtol=1e-6, atol=1e-6)
+    finally:
+        release_world()
+    assert not torch.distributed.is_initialized()
 
 
 # ------------------------------------------ the other families, on the CPU --

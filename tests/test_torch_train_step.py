@@ -138,13 +138,34 @@ def test_serving_models_build_no_graph():
     assert logits.requires_grad
 
 
-def test_rules_name_a13d():
-    cfg, shape, state, batch = _setup()
-    with pytest.raises(NotImplementedError, match="A13d"):
-        make_train_step(cfg, shape, rules=object())
-    with pytest.raises(NotImplementedError, match="A13d"):
-        effective_microbatches(shape, rules=object())
-    assert effective_microbatches(shape) == 1
+def test_effective_microbatches_match_reference():
+    """The microbatches halved until each divides over the dp degree,
+    as the reference's, on both production meshes and small ones."""
+    from jax.sharding import AbstractMesh
+
+    from repro.configs.base import SHAPES as JSHAPES
+    from repro.models.sharding import Rules as JRules
+    from repro.train.step import effective_microbatches as jeffective
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import Rules
+
+    meshes = [((16, 16), ("data", "model")),
+              ((2, 16, 16), ("pod", "data", "model")),
+              ((4, 2), ("data", "model")), ((1, 1), ("data", "model"))]
+    shapes = [(SHAPES[k], JSHAPES[k]) for k in SHAPES] + [
+        (ShapeConfig("s", 32, b, "train", num_microbatches=m),
+         JShapeConfig("s", 32, b, "train", num_microbatches=m))
+        for b, m in ((8, 4), (96, 16), (6, 2))]
+    for dims, axes in meshes:
+        rules = Rules(make_mesh(dims, axes,
+                                devices=["cpu"] * int(np.prod(dims))))
+        jrules = JRules(AbstractMesh(dims, axes))
+        for shape, jshape in shapes:
+            assert effective_microbatches(shape, rules) == \
+                jeffective(jshape, jrules), (dims, shape)
+    _, shape, _, _ = _setup()
+    assert effective_microbatches(shape, None) == 1
 
 
 def test_accumulation_dtype_follows_the_reference():
