@@ -33,7 +33,18 @@ version. Phases, one JSON line each:
             trace and the HTTP frontend; 1,000 queries through the kernels
             and the plain versions, resident, streamed and mutable (1,000
             inserts), with recall@10; ``page_scan``, ``page_scan_recs``,
-            ``pq_adc``, ``hamming`` and ``l2_distance`` at these shapes
+            ``pq_adc``, ``hamming``, ``l2_distance`` and the four masked
+            page scans at these shapes. Its ``rag`` stage, with the same
+            model: ``examples/serve_rag_torch.py``'s filtered multi-agent
+            loop on 1,000 of its 2,000 documents (printed under
+            ``reduced``): two agents' views (``Tag("agent").isin``), a
+            service with a semantic cache, four routed requests (two
+            batches, every owner in its view), the replay (every request
+            a cache hit), the top document prepended and decoded; then the
+            1,000 queries under each view through the kernels and the plain
+            versions (ids >= 99%), resident and streamed (equal exactly),
+            a masked page scan, ``pq_adc`` and ``hamming`` launched,
+            recall against a brute force over the view printed
   lm_families  the MoE, SSM, hybrid, audio and VLM families at their
             CONFIG's full width, one model at a time: mamba2-370m (48
             layers), recurrentgemma-9b (38), hubert-xlarge (48, encoder),
@@ -158,8 +169,9 @@ entry point ``ops.hamming``, driven once in the kernels phase; each
 row's ``launches_sharded`` from the sharded phase's counted host fan-out,
 ``launches_sharding`` from the sharding phase's search of SIFT100M's shard,
 ``launches_lm_serve`` from the lm_serve phase's four driver runs,
-``lm_serve_d2048`` the kernel's time, bound and launches at that phase's
-d = 2048 shapes (rows 1-5), and ``launches_lm_families`` /
+``launches_lm_rag`` from its rag stage (the example's run and the filtered
+searches), ``lm_serve_d2048`` the kernel's time, bound and launches at that
+phase's d = 2048 shapes (rows 1-5, 1m and 2m), and ``launches_lm_families`` /
 ``lm_families_d4096`` the same for the lm_families phase's two driver runs
 and its d = 4096 searches (rows 1-4).
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -2581,6 +2593,11 @@ LM_ARCH = "granite-3-2b"     # the reference driver's default arch, full width
 # collections of 500
 N_LM_DOCS = 1000
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 32, 16   # the timed generate
+# the rag stage: examples/serve_rag_torch.py's corpus (2,000 documents) cut
+# to 1,000 as N_LM_DOCS cut the phase's own, built in one round (the
+# example's config builds in 2) as the phase's other indexes are
+N_RAG_DOCS = 1000
+RAG_FULL_DOCS, RAG_FULL_ROUNDS = 2000, 2
 # the 2-layer full-width cut's logits (|logit| up to ~5), card against CPU:
 # cuBLAS and the CPU's BLAS sum in other orders, and where k or v straddles
 # a bf16 rounding boundary the KV cache element lands one bf16 step (2^-8
@@ -2905,8 +2922,8 @@ def _lm_searches(index, directory, docs, q, extra, *, device,
 
 
 def _lm_kernel_cases(s, index, q, extra) -> dict:
-    """Rows 1-5 of the kernel table at the retrieval's LM-width shapes, on
-    the index's own records, codes and LSH sample: each against its plain
+    """Rows 1-5, 1m and 2m of the kernel table at the retrieval's LM-width
+    shapes, on the index's own records, codes and LSH sample: each against its plain
     version, timed beside its bound (``l2_distance``, the delta scan, only
     when ``extra`` rows were inserted)."""
     import numpy as np
@@ -2937,6 +2954,13 @@ def _lm_kernel_cases(s, index, q, extra) -> dict:
         -2**31, 2**31, (nq, data.lsh_codes.shape[1])).astype(np.int32)).to(dev)
     rows["hamming"] = _hamming_topk_case(s, data.lsh_codes, qcodes,
                                          cfg.lsh_entries)
+    # rows 1m and 2m: the filtered scans, ADC (the rag stage's path) and
+    # members only, by page id and staged
+    for adc in (True, False):
+        for staged in (False, True):
+            row = _page_scan_case(s, data.page_recs, ids, qt, lut, masked=True,
+                                  staged=staged, **dict(kw, adc=adc))
+            rows[row["name"]] = row
     if extra is None:
         return rows
     # the delta scan's call: the inserted rows padded to a power of two
@@ -2950,30 +2974,179 @@ def _lm_kernel_cases(s, index, q, extra) -> dict:
     return rows
 
 
-# the lm_serve search each d = 2048 kernel row's launches come from
+# the lm_serve search each d = 2048 kernel row's launches come from (the
+# members-only masked variants run at these shapes but on no LM path: the
+# indexes are HYBRID)
 LM_PATHS = {"page_scan": "resident", "pq_adc": "resident",
             "hamming": "resident", "page_scan_recs": "streamed",
-            "l2_distance": "mutable"}
+            "l2_distance": "mutable", "page_scan_masked": "rag",
+            "page_scan_recs_masked": "rag_streamed"}
 
 
 def _lm_row(lm: dict, name: str) -> dict | None:
     """A kernel's numbers at d = 2048 for the kernels line: its device ms
     against its bound at the lm_serve retrieval's shapes and its launches in
-    that phase's counted 1,000-query search (None for a kernel off that
-    path)."""
-    if name not in LM_PATHS:
+    that phase's counted 1,000-query search (0 for a kernel run at these
+    shapes but on no LM path; None for a kernel not run at them)."""
+    if name not in lm["kernels"]:
         return None
     r = lm["kernels"][name]
-    search = LM_PATHS[name]
+    search = LM_PATHS.get(name)
+    launches = lm["search"][search]["launches"].get(name, 0) if search else 0
     return dict(
-        search=search, launches=lm["search"][search]["launches"].get(name, 0),
+        search=search, launches=launches,
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         max_abs_err=r["max_abs_err"])
 
 
+def _rag_example():
+    """``examples/serve_rag_torch.py`` as a module."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import serve_rag_torch
+
+    return serve_rag_torch
+
+
+def run_rag(model, arch, q, *, device: str, n_docs: int = N_RAG_DOCS) -> dict:
+    """The ``rag`` stage: ``examples/serve_rag_torch.py``'s filtered
+    multi-agent loop (``retrieve_and_decode``) with the LM phase's model on
+    the example's corpus cut to ``n_docs`` documents, then ``q`` searched
+    under each agent's view through the kernels and the plain versions,
+    resident and streamed at BUDGET. Raises unless every retrieved owner
+    lies in its view, the four requests went out as two batches (one per
+    view), every replay was a cache hit, the kernels' ids equal the plain
+    versions' on >= 99% of each view's queries, streamed = resident
+    exactly, and on the card a masked page scan, ``pq_adc`` and ``hamming``
+    launched. Recall against a brute force over each view is printed, not
+    gated. ``launches`` counts the stage's kernel launches from 0."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.core import FilterParams, PageANNIndex, recall_at_k
+    from repro_torch.kernels import ops
+
+    rag = _rag_example()
+    tokens, owners, requests = rag.corpus(arch.vocab_size, n_docs)
+    cfg = _lm_index_cfg(arch.d_model)
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = rag.retrieve_and_decode(model, arch, tokens, owners,
+                                      device=device, requests=requests,
+                                      cfg=cfg)
+    example_s = time.perf_counter() - t0
+    example_launches = ops.launch_counts()
+    owner = np.asarray(owners)
+    views = res["views"]
+    for agent, ids in zip(res["route"], res["ids"]):
+        if not set(owner[ids[ids >= 0]]) <= {agent, "shared"}:
+            raise AssertionError(f"lm_serve rag: request for {agent} "
+                                 "retrieved a document outside its view")
+    if sorted(size for _, size in res["batches"]) != [2, 2, 2, 2] or len(
+            {b for b, _ in res["batches"]}) != 2:
+        raise AssertionError(f"lm_serve rag: the two views' requests did not "
+                             f"go out as two batches: {res['batches']}")
+    if res["cached"] != len(res["route"]):
+        raise AssertionError(f"lm_serve rag: {res['cached']} of "
+                             f"{len(res['route'])} replays were cache hits")
+    m = res["metrics"]
+    out = dict(
+        docs=n_docs, dim=cfg.dim, capacity=cfg.resolve_capacity(),
+        reduced={"docs": [n_docs, RAG_FULL_DOCS],
+                 "build_rounds": [cfg.build_rounds, RAG_FULL_ROUNDS]},
+        example_s=example_s, build_s=res["build_s"],
+        decode_ms=res["decode_s"] * 1e3, generated=res["generated"].tolist(),
+        ids=res["ids"].tolist(), cache_hits=m.semantic_hits,
+        cache_misses=m.semantic_misses, batches=m.batches,
+        example_launches={k: v for k, v in example_launches.items() if v},
+        output=buf.getvalue().splitlines())
+    emit("lm_serve", stage="rag_example", **out)
+
+    index, docs = res["index"], res["doc_emb"]
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        index.save(str(root / "docs.pageann"))
+        streamed = PageANNIndex.load(str(root / "docs.pageann"), device=device,
+                                     memory_budget=BUDGET)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    searches, counted = {}, {"rag": {}, "rag_streamed": {}}
+    for agent, expr in views.items():
+        index.search(q[:8], k=10, filter=expr)            # warm-up
+        runs = {}
+        for label, idx in (("rag", index), ("rag_streamed", streamed)):
+            before = ops.launch_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            got = idx.search(q, k=10, filter=expr)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            launches = {k: v - before.get(k, 0)
+                        for k, v in ops.launch_counts().items()
+                        if v > before.get(k, 0)}
+            for k, v in launches.items():
+                counted[label][k] = counted[label].get(k, 0) + v
+            runs[label] = (got, wall, launches)
+        got, wall, launches = runs["rag"]
+        _sync(device)
+        t0 = time.perf_counter()
+        plain = index.search(q, k=10, filter=expr, impl="plain")
+        plain_wall = time.perf_counter() - t0
+        passing, truth = _filtered_truth(index, docs, q, expr)
+        sel = index.compiled_filter(expr)[1]
+        agree = float((got.ids == plain.ids).all(1).mean())
+        row = dict(
+            view=agent, selectivity=sel, queries=len(q),
+            beam=index.default_params.beam_width * index._filter_oversample(
+                sel, FilterParams().max_filter_oversample),
+            ms=wall * 1e3, plain_ms=plain_wall * 1e3,
+            streamed_ms=runs["rag_streamed"][1] * 1e3,
+            recall_at_10=recall_at_k(got.ids, truth),
+            plain_recall_at_10=recall_at_k(plain.ids, truth),
+            ids_agree_share=agree,
+            ios_hops_agree_share=float(((got.ios == plain.ios)
+                                        & (got.hops == plain.hops)).mean()),
+            mean_ios=float(np.mean(got.ios)), mean_hops=float(np.mean(got.hops)),
+            launches=launches, streamed_launches=runs["rag_streamed"][2])
+        searches[agent] = row
+        emit("lm_serve", stage="rag_search", **row)
+        for what, ids in (("kernels", got.ids), ("plain", plain.ids)):
+            found = owner[ids[ids >= 0]]
+            if not set(found) <= {agent, "shared"} or not passing[
+                    ids[ids >= 0]].all():
+                raise AssertionError(f"lm_serve rag {agent}: the {what} search "
+                                     "returned a document outside the view")
+        if agree < 0.99:
+            raise AssertionError(f"lm_serve rag {agent}: kernel and plain ids "
+                                 f"agree on only {agree:.4f} of queries")
+        _search_equal(runs["rag_streamed"][0], got,
+                      f"lm_serve rag {agent}: streamed")
+    out["search"] = searches
+    out["launches"] = ops.launch_counts()
+    if str(device).startswith("cuda"):
+        res_counts = counted["rag"]
+        never = [k for k in ("pq_adc", "hamming") if not res_counts.get(k)]
+        if not (res_counts.get("page_scan_masked")
+                or res_counts.get("page_scan_recs_masked")):
+            never.append("page_scan_masked / page_scan_recs_masked")
+        if not counted["rag_streamed"].get("page_scan_recs_masked"):
+            never.append("page_scan_recs_masked (streamed)")
+        if never:
+            raise AssertionError(f"lm_serve rag: {never} never launched in the "
+                                 "filtered searches")
+    emit("lm_serve", stage="rag", counted=counted,
+         launches={k: v for k, v in out["launches"].items() if v})
+    return dict(out, counted=counted)
+
+
 def run_lm_serve(s: Smoke, *, device: str, seed: int, smoke_arch: bool = False,
-                 n_docs: int = N_LM_DOCS, n_queries: int = N_QUERIES) -> dict:
+                 n_docs: int = N_LM_DOCS, n_queries: int = N_QUERIES,
+                 n_rag_docs: int = N_RAG_DOCS) -> dict:
     """The dense decoder at granite-3-2b's full CONFIG (``smoke_arch`` takes
     SMOKE, for a CPU rehearsal) and the port's serving driver over indexes of
     its mean token embeddings (d = 2048: HYBRID capacity 1, 16 member rows a
@@ -3018,6 +3191,7 @@ def run_lm_serve(s: Smoke, *, device: str, seed: int, smoke_arch: bool = False,
     extra = _token_means(model, n_queries, arch.vocab_size, seed + 12)
     out["lm"] = _lm_model_phase(model, arch, device=device, seed=seed)
     emit("lm_serve", stage="lm", **out["lm"])
+    out["rag"] = run_rag(model, arch, q, device=device, n_docs=n_rag_docs)
     del model
     if str(device).startswith("cuda"):
         torch.cuda.empty_cache()
@@ -3094,6 +3268,8 @@ def run_lm_serve(s: Smoke, *, device: str, seed: int, smoke_arch: bool = False,
 
         out["search"] = _lm_searches(index, idx_dir, docs, q, extra,
                                      device=device)
+        out["search"].update({k: {"launches": v}
+                              for k, v in out["rag"]["counted"].items()})
         emit("lm_serve", stage="search", **out["search"])
         if str(device).startswith("cuda"):
             out["kernels"] = _lm_kernel_cases(s, index, q, extra)
@@ -4233,6 +4409,10 @@ def _main(args, torch, t_start, started: list) -> int:
     never = [name for name in KERNELS if launches.get(name, 0) <= 0]
     if never:
         raise AssertionError(f"never launched on their paths: {never}")
+    jax_side = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if jax_side:
+        raise AssertionError(f"the port's run imported {jax_side[:5]}")
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -4246,6 +4426,7 @@ def _main(args, torch, t_start, started: list) -> int:
             launches_sharding=sharding_launches.get(name, 0),
             launches_lm_serve=sum(run.get(name, 0) for run in
                                   lm["driver_launches"].values()),
+            launches_lm_rag=lm["rag"]["launches"].get(name, 0),
             lm_serve_d2048=_lm_row(lm, name),
             launches_lm_families=sum(run.get(name, 0) for run in
                                      fam["d4096"]["driver_launches"].values()),

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import pq as pq_mod
 from repro_torch.core.config import MemoryMode, PageANNConfig
 from repro_torch.core.page_graph import PAD, PageGrouping
 from repro_torch.device import resolve_device
@@ -290,6 +291,22 @@ def build_memory_tier(
 def reassigned_vectors(store: PageStore) -> np.ndarray:
     """Vectors in reassigned order, zero rows for padded slots: (P*cap, d)."""
     return np.asarray(store.vecs).reshape(-1, store.dim)
+
+
+def reassigned_codes(
+    x: np.ndarray, store: PageStore, codebooks: np.ndarray, *,
+    device: str | torch.device = "cuda",
+) -> np.ndarray:
+    """PQ codes of all vectors in reassigned order (padded slots encode the
+    zero vector): (P*cap, M) uint8, encoded on ``device``.
+
+    ``x`` is the vectors in original id order; it is kept for the
+    reference's argument list and not read, because the store's pages
+    already hold every vector in slot order (``reassigned_vectors``)."""
+    device = resolve_device(device)
+    xr = torch.as_tensor(reassigned_vectors(store)).to(device)
+    books = torch.as_tensor(np.asarray(codebooks, np.float32)).to(device)
+    return pq_mod.pq_encode(xr, books).cpu().numpy()
 
 
 def reassign_metadata(tags: np.ndarray, nums: np.ndarray, store: PageStore):

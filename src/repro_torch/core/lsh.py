@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ref as kernels_ref
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -35,6 +36,13 @@ def hash_codes(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     return pack_bits(x @ planes > 0)
 
 
+def hamming_distance(codes: torch.Tensor, qcode: torch.Tensor) -> torch.Tensor:
+    """Hamming distances between packed codes (S, W) and a query code (W,)
+    -> (S,) int32. The words are int32 views of uint32 bit patterns: the
+    popcount counts the sign bit as a bit (``kernels.ref.hamming_ref``)."""
+    return kernels_ref.hamming_ref(codes, qcode[None, :])[0]
+
+
 @dataclasses.dataclass
 class LSHIndex:
     planes: torch.Tensor        # (d, B) float32
@@ -50,6 +58,16 @@ class LSHIndex:
             + self.sample_codes.numel() * 4
             + self.sample_pq.numel()
         )
+
+    def query(self, q: torch.Tensor, top_t: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Entry vector ids and Hamming distances for a single query (d,):
+        the ``top_t`` nearest samples by a stable sort, the lower sample
+        first on ties, as ``jnp.argsort`` orders them."""
+        qcode = hash_codes(q[None, :], self.planes)[0]
+        ham = hamming_distance(self.sample_codes, qcode)
+        top = torch.sort(ham, stable=True).indices[:top_t]
+        return self.sample_ids[top], ham[top]
 
 
 def build_lsh(

@@ -105,6 +105,11 @@ class IndexFormatError(ValueError):
     of what this build supports."""
 
 
+def is_index_dir(directory: str) -> bool:
+    """Whether ``directory`` holds an index manifest."""
+    return os.path.isfile(os.path.join(directory, MANIFEST))
+
+
 def write_manifest(directory: str, doc: dict) -> None:
     doc = dict(doc, format=FORMAT, version=VERSION)
     with open(os.path.join(directory, MANIFEST), "w") as f:

@@ -94,3 +94,22 @@ def pq_lut(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     m, _, dsub = codebooks.shape
     qs = q.reshape(q.shape[0], m, 1, dsub)
     return ((qs - codebooks[None]) ** 2).sum(-1)
+
+
+def adc_distance(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Asymmetric distance: the sum of the LUT entries the codes select.
+
+    codes: (..., M) uint8, lut: (M, ksub) -> (...,) float32. The plain
+    counterpart of ``repro.core.pq.adc_distance``; the search's batched
+    ADC is the ``pq_adc`` kernel."""
+    m = lut.shape[0]
+    rows = torch.arange(m, device=lut.device)
+    return lut[rows, codes.long()].sum(-1)
+
+
+def pq_decode(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Reconstruct approximate vectors from codes (for diagnostics).
+    codes: (N, M), codebooks: (M, ksub, dsub) -> (N, M * dsub)."""
+    m, _, dsub = codebooks.shape
+    rows = torch.arange(m, device=codebooks.device)
+    return codebooks[rows, codes.long()].reshape(codes.shape[0], m * dsub)

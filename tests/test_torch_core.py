@@ -124,6 +124,54 @@ def test_build_lsh_same_planes_samples_and_codes(data):
     assert j.memory_bytes == t.memory_bytes
 
 
+@pytest.mark.parametrize("words", [1, 2, 4])
+def test_hamming_distance_equal_sign_bit_included(words):
+    """Exact: the port's int32 words hold the reference's uint32 bit
+    patterns, and a set sign bit counts as one bit."""
+    rng = np.random.default_rng(words)
+    codes = rng.integers(0, 2**32, (64, words), dtype=np.uint64).astype(np.uint32)
+    codes[0] = 0xFFFFFFFF
+    codes[1] = 0x80000000
+    codes[2] = 0
+    for qcode in (codes[5], codes[0], codes[1],
+                  np.full(words, 0x7FFFFFFF, np.uint32)):
+        want = np.asarray(jlsh.hamming_distance(jnp.asarray(codes),
+                                                jnp.asarray(qcode)))
+        got = tlsh.hamming_distance(torch.as_tensor(codes.view(np.int32)),
+                                    torch.as_tensor(qcode.view(np.int32)))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bits,top_t", [(32, 8), (64, 16)])
+def test_lsh_query_equal_on_forced_ties(data, bits, top_t):
+    """``LSHIndex.query``: ids and Hamming distances equal to the
+    reference's. The sample holds each vector three times, so every
+    distance is tied at least three ways and the order within a tie
+    (the lower sample first, ``jnp.argsort``'s stable order) decides
+    which ids fill the last places."""
+    x, q = data
+    xt = np.repeat(x[:200], 3, axis=0)
+    codes = np.random.default_rng(3).integers(0, 256, (len(xt), 8)).astype(np.uint8)
+    j = jlsh.build_lsh(xt, codes, bits=bits, sample=300, seed=4)
+    t = tlsh.build_lsh(xt, codes, bits=bits, sample=300, seed=4, device="cpu")
+    np.testing.assert_array_equal(np.asarray(j.sample_codes),
+                                  t.sample_codes.numpy().view(np.uint32))
+    cut_ties = 0
+    for qi in list(q[:20]) + list(xt[:5]):
+        jids, jham = j.query(jnp.asarray(qi), top_t)
+        tids, tham = t.query(torch.as_tensor(qi), top_t)
+        np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+        np.testing.assert_array_equal(tham.numpy(), np.asarray(jham))
+        full = np.asarray(jlsh.hamming_distance(j.sample_codes,
+                                                jlsh.hash_codes(
+                                                    jnp.asarray(qi)[None],
+                                                    j.planes)[0]))
+        last = np.asarray(jham)[-1]
+        cut_ties += int((full == last).sum() > (np.asarray(jham) == last).sum())
+    assert cut_ties > 0      # some top-T cut runs through a tie
+
+
 # ------------------------------------------------------------ page graph
 def test_grouping_edges_and_page_records_identical(data, graph):
     """Given the same Vamana adjacency, page grouping, page edges, id
@@ -198,6 +246,30 @@ def test_pq_encode_equal_apart_from_counted_near_ties(data, record_property):
         dt = ((sub - books[j, got[n, j]]) ** 2).sum()
         assert abs(dj - dt) <= 1e-4 * max(1.0, dj), (n, j, dj, dt)
     assert len(diff) <= 0.001 * got.size
+
+
+@pytest.mark.parametrize("lead", [(40,), (3, 7), ()])
+def test_adc_distance_matches_reference(lead):
+    """rtol = atol = 1e-5: the M selected entries are summed in another
+    order than jnp's."""
+    rng = np.random.default_rng(len(lead))
+    lut = rng.random((8, 256)).astype(np.float32) * 10
+    codes = rng.integers(0, 256, lead + (8,)).astype(np.uint8)
+    want = np.asarray(jpq.adc_distance(jnp.asarray(codes), jnp.asarray(lut)))
+    got = tpq.adc_distance(torch.as_tensor(codes), torch.as_tensor(lut))
+    assert got.dtype == torch.float32 and tuple(got.shape) == lead
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_pq_decode_bit_for_bit(data):
+    """A gather: equal bit for bit."""
+    x, _ = data
+    books = np.array(jpq.train_pq(x, 8, 256, 4, seed=0))
+    codes = np.asarray(jpq.pq_encode(jnp.asarray(x), jnp.asarray(books)))
+    want = np.asarray(jpq.pq_decode(jnp.asarray(codes), jnp.asarray(books)))
+    got = tpq.pq_decode(torch.as_tensor(codes), torch.as_tensor(books)).numpy()
+    assert got.shape == (N, D)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_train_pq_codebooks_quantize_as_well_as_the_reference(data):
@@ -328,6 +400,44 @@ def test_build_recall_within_0_005_of_the_jax_build(data):
     assert ti.stats.pages == ti.store.num_pages
     assert ti.stats.capacity == ji.stats.capacity
     assert ti.stats.padded_tile_bytes == ji.stats.padded_tile_bytes
+
+
+@pytest.fixture(scope="module")
+def jax_artifact(data, tmp_path_factory):
+    """(the reference's HYBRID index over ``data``, its saved directory)."""
+    x, _ = data
+    cfg = jconfig.PageANNConfig(dim=D, graph_degree=12, build_beam=24,
+                                build_rounds=1, pq_subspaces=8,
+                                lsh_sample=256, lsh_entries=8)
+    ji = JaxIndex.build(x, cfg)
+    directory = str(tmp_path_factory.mktemp("core") / "idx.pageann")
+    ji.save(directory)
+    return ji, directory
+
+
+def test_is_index_dir_equal(jax_artifact, tmp_path):
+    _, directory = jax_artifact
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    a_file = tmp_path / "manifest.json"
+    a_file.write_text("{}")
+    for path in (directory, str(empty), str(a_file), str(tmp_path / "none")):
+        assert tpersist.is_index_dir(path) == jpersist.is_index_dir(path)
+    assert tpersist.is_index_dir(directory)
+
+
+def test_reassigned_codes_equal_on_a_store_carried_across(data, jax_artifact):
+    """Equal: a store the reference built, loaded by the port, encoded with
+    the reference's disk codebooks (pad slots encode the zero vector)."""
+    x, _ = data
+    ji, directory = jax_artifact
+    ti = tpersist.load_pageann(directory, device="cpu")
+    books = np.asarray(ji.tier.disk_codebooks)
+    want = jlayout.reassigned_codes(x, ji.store, books)
+    got = tlayout.reassigned_codes(x, ti.store, books, device="cpu")
+    assert got.dtype == np.uint8
+    assert got.shape == (ji.store.num_pages * ji.store.capacity, 8)
+    np.testing.assert_array_equal(got, want)
 
 
 _CFG = tconfig.PageANNConfig(dim=D, pq_subspaces=8)

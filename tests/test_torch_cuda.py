@@ -1197,3 +1197,47 @@ def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert a.dtype == b.dtype
             assert torch.equal(a.cpu(), b.cpu())
     assert state.params.embed.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_serve_rag_example_same_ids_on_the_card_and_the_cpu(cuda, tmp_path):
+    """``examples/serve_rag_torch.py``'s retrieval at SMOKE width over one
+    collection, built on the CPU and saved once, attached on the card and
+    on the CPU: the same ids for every request, with a masked page scan,
+    ``pq_adc`` and ``hamming`` launched on the card."""
+    import contextlib
+    import copy
+    import importlib.util
+    import io
+    from pathlib import Path
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import MetadataSchema, PageANNIndex
+    from repro_torch.models import transformer as tf
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "serve_rag_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_rag_torch", path)
+    rag = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rag)
+    arch = get_arch("granite-3-2b", smoke=True)
+    model = tf.init_params(arch, torch.Generator().manual_seed(0), device="cpu")
+    tokens, owners, requests = rag.corpus(arch.vocab_size, 300)
+    docs = rag.embed(model, tokens)
+    index = PageANNIndex.build(docs, rag.index_config(docs.shape[1]),
+                               schema=MetadataSchema(tags=("agent",)),
+                               metadata={"agent": owners}, device="cpu")
+    index.save(str(tmp_path / "docs"))
+    out = {}
+    for device in ("cpu", cuda):
+        on = model if device == "cpu" else copy.deepcopy(model).to(device)
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[str(device)] = rag.retrieve_and_decode(
+                on, arch, tokens, owners, device=device, requests=requests,
+                index_dir=str(tmp_path / "docs"))
+        launches = ops.launch_counts()
+    np.testing.assert_array_equal(out["cuda"]["ids"], out["cpu"]["ids"])
+    assert out["cuda"]["cached"] == 4
+    assert launches.get("page_scan_masked", 0) + launches.get(
+        "page_scan_recs_masked", 0) > 0, launches
+    assert launches.get("pq_adc", 0) > 0 and launches.get("hamming", 0) > 0
