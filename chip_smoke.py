@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/H100 port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # needs one CUDA card; 12-19 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 14-17 minutes
 
 Drives the port alone (no JAX, nothing of ``src/repro``) through its user
 entry points and checks each hand-written kernel against its plain PyTorch
@@ -10,7 +10,8 @@ version. Phases, one JSON line each:
   device    the card's name and power limit
   build     compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels   each kernel vs its plain version at the main path's shapes
-            (and both record packings, d = 32 / 128 / 200), with times;
+            (and both record packings, d = 32 / 128 / 200, and the
+            quickstart's d = 32 records at capacity 28, M = 8), with times;
             the masked (filtered) and staged (streamed) page-scan variants,
             all eight also at Q = 64; the members-only scores must equal
             the ADC variants' bit for bit on the same records
@@ -36,7 +37,7 @@ version. Phases, one JSON line each:
             ``pq_adc``, ``hamming``, ``l2_distance`` and the four masked
             page scans at these shapes. Its ``rag`` stage, with the same
             model: ``examples/serve_rag_torch.py``'s filtered multi-agent
-            loop on 1,000 of its 2,000 documents (printed under
+            loop on 500 of its 2,000 documents (printed under
             ``reduced``): two agents' views (``Tag("agent").isin``), a
             service with a semantic cache, four routed requests (two
             batches, every owner in its view), the replay (every request
@@ -44,7 +45,11 @@ version. Phases, one JSON line each:
             1,000 queries under each view through the kernels and the plain
             versions (ids >= 99%), resident and streamed (equal exactly),
             a masked page scan, ``pq_adc`` and ``hamming`` launched,
-            recall against a brute force over the view printed
+            recall against a brute force over the view printed; then the
+            same documents and owners in a MEM_ALL index (capacity 1:
+            the members-only masked scans ``page_scan_members_masked``
+            and ``page_scan_recs_members_masked`` on a served path, each
+            launched) searched under each view the same way
   lm_families  the MoE, SSM, hybrid, audio and VLM families at their
             CONFIG's full width, one model at a time: mamba2-370m (48
             layers), recurrentgemma-9b (38), hubert-xlarge (48, encoder),
@@ -66,8 +71,16 @@ version. Phases, one JSON line each:
             warm-up step and 3 timed on a repeated batch (loss finite and
             falling, parameters moved), one profiled (launches, idle
             share) against the flop bound, peak memory; the same step at
-            remat ``full``; its parameters (10.5 GB) through ``save`` and
-            ``restore`` into a fresh model, equal bit for bit;
+            remat ``full``; on the same state the step with
+            ``activation_dtype="bfloat16"`` (the reference's hillclimb
+            lever; TF32 stays off): its forward's loss within 2^-9 of the
+            float32 forward's on the same parameters and batch, one
+            warm-up and 3 timed steps (finite, falling, parameters moved),
+            one profiled, beside the float32 step's ms, peak, launches and
+            idle share, its bound over 67 TFLOP/s and, an estimate, over
+            the dense bf16 peak (989 TFLOP/s); its parameters (10.5 GB)
+            through ``save`` and ``restore`` into a fresh model, equal bit
+            for bit;
             qwen1.5-110b's CONFIG with Adafactor at 2 of its 80 layers
             (printed under ``reduced``; batch 4 x 256); granite cut to 2
             layers and kimi-k2's SMOKE (bf16) two steps card against CPU
@@ -95,6 +108,26 @@ version. Phases, one JSON line each:
             vectors) and MEM_ALL (members-only page scan, 3,000 vectors:
             half the depth, so the baselines' build fits the time), once
             through the kernels and once through the plain versions
+  e2e_disk_only  the same in DISK_ONLY (3,000 vectors, the paper's mode
+            for a memory ratio near 0%: the on-page ADC is the only
+            neighbour estimate): recall@10 >= 0.90, kernels = plain, one
+            ``hamming`` and one ``pq_adc`` launch a search (the entries:
+            no re-score in the hop loop), its memory bytes beside
+            HYBRID's; streamed at 0.25 and at one resident page
+            (``MemoryBudget(bytes=1)``), each equal to the resident search
+            exactly, with pages fetched, fetch ms a hop and QPS beside the
+            resident QPS, and the staging cache's hit share (it holds 256
+            of the 500 pages, so one card page is not ~0% of the file in
+            memory); filtered at selectivity 0.1 and the conjunction,
+            resident and streamed at one page (``page_scan_masked`` and
+            ``page_scan_recs_masked`` launched). The adaptive, profile and
+            mutable phases run in HYBRID and MEM_ALL only
+  quickstart  ``examples/quickstart_torch.py``'s ``main`` on the card at
+            its default 5,000 vectors (d = 32, ``pq_subspaces=8``,
+            capacity 28): recall@10 >= 0.90, the example's own bit-identical
+            reload, ``page_scan``, ``pq_adc`` and ``hamming`` launched; then
+            1,000 queries over its index through the kernels and the plain
+            versions (ids >= 99%)
   stream    each e2e index saved and reloaded under a 0.25 memory budget:
             the streamed search must equal the resident one exactly
   filter    filtered search at selectivities 0.5 / 0.1 / 0.01 and a
@@ -169,9 +202,14 @@ entry point ``ops.hamming``, driven once in the kernels phase; each
 row's ``launches_sharded`` from the sharded phase's counted host fan-out,
 ``launches_sharding`` from the sharding phase's search of SIFT100M's shard,
 ``launches_lm_serve`` from the lm_serve phase's four driver runs,
-``launches_lm_rag`` from its rag stage (the example's run and the filtered
-searches), ``lm_serve_d2048`` the kernel's time, bound and launches at that
-phase's d = 2048 shapes (rows 1-5, 1m and 2m), and ``launches_lm_families`` /
+``launches_lm_rag`` from its rag stage (the example's run and the HYBRID
+index's filtered searches), ``launches_lm_rag_memall`` from that stage's
+MEM_ALL searches alone,
+``launches_disk_only`` from the DISK_ONLY run that serves the kernel (the
+e2e search, the one-page streamed search, the filtered searches),
+``launches_quickstart`` from the quickstart's run, ``lm_serve_d2048`` the
+kernel's time, bound and launches at that phase's d = 2048 shapes (rows
+1-5, 1m and 2m), and ``launches_lm_families`` /
 ``lm_families_d4096`` the same for the lm_families phase's two driver runs
 and its d = 4096 searches (rows 1-4).
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
@@ -210,7 +248,16 @@ N_QUERIES = 1000            # one search batch, as a serving engine would send
 N_MAIN = 6000
 # MEM_ALL's e2e vectors: half the main path's depth (see N_MAIN)
 N_MEMALL = 3000
+# DISK_ONLY's e2e vectors: MEM_ALL's depth
+N_DISKONLY = 3000
 BUDGET = 0.25               # the streamed tier: a quarter of the pages resident
+# DISK_ONLY's second budget, the paper's ~0% memory ratio on the card: one
+# byte, which MemoryBudget.parse reads as bytes=1 and resolves to one
+# resident page (its floor). The fetcher's host staging cache still holds
+# 256 of the 500 pages at N_DISKONLY, so most page requests are staging
+# hits (stage_hit_share in the line): a ~0% ratio in host memory too needs
+# a page file far larger than that cache
+ONE_PAGE = 1
 SELECTIVITIES = (0.5, 0.1, 0.01)
 MIN_RECALL = 0.90           # recall@10: HYBRID unfiltered, every filtered search,
                             # the mutable index over its live set
@@ -774,6 +821,9 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
     geoms = [
         (cfg_hybrid, True),
         (dataclasses.replace(cfg_hybrid, dim=32), True),
+        # examples/quickstart_torch.py's geometry: capacity 28, M = 8
+        (dataclasses.replace(cfg_hybrid, dim=32, graph_degree=24,
+                             pq_subspaces=8), True),
         (dataclasses.replace(cfg_hybrid, dim=200, pq_subspaces=8), True),
         (cfg_memall, False),
         (dataclasses.replace(cfg_memall, dim=32), False),
@@ -1244,13 +1294,16 @@ def _median_wall(fn, device: str, runs: int = 3) -> float:
     return float(np.median(walls))
 
 
-def run_stream(ctx: dict, *, device: str, label: str = "stream") -> dict:
-    """Save the e2e index, reload it under the memory budget and search the
-    same queries: every field must equal the resident search's exactly.
-    Adds the streamed index to ``ctx`` for the filter phase."""
+def run_stream(ctx: dict, *, device: str, label: str = "stream",
+               budget=BUDGET) -> dict:
+    """Save the e2e index, reload it under ``budget`` (a
+    ``MemoryBudget.parse`` spec) and search the same queries: every field
+    must equal the resident search's exactly. Adds the streamed index to
+    ``ctx`` for the filter phase."""
     import numpy as np
 
     from repro_torch.core import PageANNIndex
+    from repro_torch.core.stream import DEFAULT_STAGE_PAGES
     from repro_torch.kernels import ops
 
     index, q, want = ctx["index"], ctx["q"], ctx["result"]
@@ -1259,7 +1312,7 @@ def run_stream(ctx: dict, *, device: str, label: str = "stream") -> dict:
     try:
         index.save(directory)
         streamed = PageANNIndex.load(directory, device=device,
-                                     memory_budget=BUDGET)
+                                     memory_budget=budget)
         streamed.search(q, k=10)          # warm-up: pinned buffer, OS cache
         streamed.fetcher.reset_stats()
         ops.reset_launch_counts()
@@ -1284,13 +1337,25 @@ def run_stream(ctx: dict, *, device: str, label: str = "stream") -> dict:
         resident_wall = _median_wall(lambda: index.search(q, k=10), device)
         hops = max(1, int(got.hops.max()))
         out = dict(
-            mode=index.cfg.memory_mode.value, budget=BUDGET,
+            mode=index.cfg.memory_mode.value, budget=budget,
             resident_pages=streamed.stats.resident_pages,
             total_pages=streamed.stats.pages,
             resident_bytes=streamed.stats.resident_bytes,
             pages_fetched=fetch["pages_fetched"], fetch_hits=fetch["fetch_hits"],
             fetch_wall_ms=fetch["fetch_wall_s"] * 1e3,
             fetch_calls=len(fetch["wall_window"]),
+            fetch_ms_per_hop=(fetch["fetch_wall_s"] * 1e3
+                              / max(1, len(fetch["wall_window"]))),
+            # the fetcher's host staging cache (an LRU of stage_pages
+            # pages, kept warm from the warm-up search) serves the
+            # re-requests: what the card holds plus what the host stages is
+            # the share of the file held in memory, whatever the budget
+            stage_pages=DEFAULT_STAGE_PAGES,
+            stage_hit_share=fetch["fetch_hits"] / max(
+                1, fetch["fetch_hits"] + fetch["pages_fetched"]),
+            held_share=min(1.0, (streamed.stats.resident_pages
+                                 + DEFAULT_STAGE_PAGES)
+                           / streamed.stats.pages),
             equal_to_resident=True, launches=launches,
             counted_wall_ms=wall * 1e3,
             qps=len(q) / stream_wall, resident_qps=len(q) / resident_wall,
@@ -1874,6 +1939,107 @@ def run_compaction(cfg, *, device: str, seed: int,
         raise AssertionError(f"{label}: recall {recall:.4f} after compaction, "
                              f"{fresh_recall:.4f} for a fresh build")
     return out
+
+
+def run_disk_only(cfg, *, device: str, seed: int, n: int = N_DISKONLY,
+                  hybrid_memory_bytes: int | None = None) -> dict:
+    """DISK_ONLY, the paper's mode for a memory ratio near 0%: every
+    neighbour's code lies on its page, so the page scan's on-page ADC is the
+    only neighbour estimate and ``pq_adc`` scores the entries alone. The e2e
+    build and search (recall@10 >= MIN_RECALL, kernels = plain, one
+    ``hamming`` and one ``pq_adc`` launch a search: a second ``pq_adc``
+    would mean the hop loop re-scores), the streamed search at BUDGET and
+    at ONE_PAGE (one resident page; equal to the resident search exactly),
+    and the filtered searches, resident and streamed at one page
+    (``page_scan_masked`` and ``page_scan_recs_masked`` launched). Returns
+    each kernel's launches from the run that serves it."""
+    run, ctx = run_e2e(cfg, n, N_QUERIES, device=device, seed=seed,
+                       label="e2e_disk_only")
+    emit("e2e_disk_only", memory_bytes=run["stats"]["memory_bytes"],
+         hybrid_memory_bytes=hybrid_memory_bytes)
+    if run["recall_at_10"] < MIN_RECALL:
+        raise AssertionError(f"DISK_ONLY recall@10 {run['recall_at_10']} < "
+                             f"{MIN_RECALL}")
+    if device == "cuda" and run["launches"]["pq_adc"] != 1:
+        raise AssertionError(f"e2e_disk_only: {run['launches']['pq_adc']} "
+                             "pq_adc launches in one search, not 1")
+    launches = {k: run["launches"][k] for k in ("page_scan", "pq_adc",
+                                                "hamming")}
+    for budget, label in ((BUDGET, "stream_disk_only"),
+                          (ONE_PAGE, "stream_disk_only_one_page")):
+        stream = run_stream(ctx, device=device, label=label, budget=budget)
+        if budget == ONE_PAGE and stream["resident_pages"] != 1:
+            raise AssertionError(f"{label}: {stream['resident_pages']} "
+                                 "resident pages, not 1")
+    launches["page_scan_recs"] = stream["launches"]["page_scan_recs"]
+    # ctx["streamed"] is now the one-page index
+    filt = run_filter(ctx, device=device, label="filter_disk_only",
+                      exprs=filter_exprs(ctx["meta"]["score"], full=False))
+    launches["page_scan_masked"] = filt["launches"]["page_scan_masked"]
+    launches["page_scan_recs_masked"] = filt["stream_launches"][
+        "page_scan_recs_masked"]
+    if device == "cuda":
+        never = [k for k, v in launches.items() if v <= 0]
+        if never:
+            raise AssertionError(f"disk_only: {never} never launched")
+    return launches
+
+
+def run_quickstart(*, device: str, seed: int, n: int = 5000) -> dict:
+    """``examples/quickstart_torch.py``'s ``main`` at its default size (5,000
+    vectors at d = 32, HYBRID, ``pq_subspaces=8``, capacity 28): build,
+    search, the beam sweep, save and the reload, whose search the example
+    itself holds bit for bit to the first (``SystemExit`` otherwise). Then
+    N_QUERIES queries over the example's index through the kernels and the
+    plain versions, at the record and LUT shapes of its geometry. Raises
+    unless recall@10 >= MIN_RECALL, the kernels' ids equal the plain
+    versions' on >= 99% of queries and, on the card, ``page_scan``,
+    ``pq_adc`` and ``hamming`` launched. Returns the launches, counted from
+    0 around the example's call."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import query_vectors
+    from repro_torch.kernels import ops
+
+    example = _example("quickstart_torch")
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = example.main([], device=device, n=n)
+    except SystemExit as e:
+        raise AssertionError(f"quickstart: {e}") from None
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    index, x = res.pop("index"), res.pop("vectors")
+    q = query_vectors(x, N_QUERIES, seed=seed)
+    got = index.search(q, k=10)
+    plain = index.search(q, k=10, impl="plain")
+    agree = float((got.ids == plain.ids).all(1).mean())
+    emit("quickstart", n=n, seconds=seconds, **res,
+         capacity=index.stats.capacity, pages=index.stats.pages,
+         record_rows=int(index.data.page_recs.shape[1]),
+         launches={k: v for k, v in launches.items() if v},
+         queries=len(q), ids_agree_share=agree,
+         dists_max_abs_diff=float(np.abs(got.dists - plain.dists)[
+             np.isfinite(got.dists)].max()),
+         output=buf.getvalue().splitlines())
+    if res["recall_at_10"] < MIN_RECALL:
+        raise AssertionError(f"quickstart: recall@10 {res['recall_at_10']} < "
+                             f"{MIN_RECALL}")
+    if agree < 0.99:
+        raise AssertionError(f"quickstart: kernel and plain paths agree on "
+                             f"ids for only {agree:.4f} of queries")
+    if device == "cuda":
+        never = [k for k in ("page_scan", "pq_adc", "hamming")
+                 if not launches[k]]
+        if never:
+            raise AssertionError(f"quickstart: {never} never launched")
+    return launches
 
 
 # the baselines' operating points: the default SearchParams, and a beam
@@ -2594,9 +2760,10 @@ LM_ARCH = "granite-3-2b"     # the reference driver's default arch, full width
 N_LM_DOCS = 1000
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 32, 16   # the timed generate
 # the rag stage: examples/serve_rag_torch.py's corpus (2,000 documents) cut
-# to 1,000 as N_LM_DOCS cut the phase's own, built in one round (the
-# example's config builds in 2) as the phase's other indexes are
-N_RAG_DOCS = 1000
+# to 500 so that the stage's two builds (HYBRID and MEM_ALL) fit the smoke's
+# time, each in one round (the example's config builds in 2) as the phase's
+# other indexes are
+N_RAG_DOCS = 500
 RAG_FULL_DOCS, RAG_FULL_ROUNDS = 2000, 2
 # the 2-layer full-width cut's logits (|logit| up to ~5), card against CPU:
 # cuBLAS and the CPU's BLAS sum in other orders, and where k or v straddles
@@ -2702,7 +2869,10 @@ def _generate(model, arch, prompts, n_gen: int):
 def _profile_step(fn, wall_ms: float) -> dict:
     """``fn()`` once under the profiler: the device's busy ms, its kernel
     launches, its idle share against ``wall_ms`` and the eight kernels that
-    took the most device time."""
+    took the most device time. The device events are read from the
+    profiler's raw (kineto) results: ``prof.events()`` builds an event tree
+    over every host op too, which for a train step's ~40,000 kernels takes
+    tens of seconds of host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -2712,12 +2882,15 @@ def _profile_step(fn, wall_ms: float) -> dict:
                               ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    kern = [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+    busy = sum(ms for _, ms in kern)
     by_name: dict = {}
-    for e in kern:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, ms_e in kern:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + ms_e, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(
         device_busy_ms=busy if kern else None,
@@ -2975,19 +3148,20 @@ def _lm_kernel_cases(s, index, q, extra) -> dict:
 
 
 # the lm_serve search each d = 2048 kernel row's launches come from (the
-# members-only masked variants run at these shapes but on no LM path: the
-# indexes are HYBRID)
+# members-only masked variants from the rag stage's MEM_ALL index)
 LM_PATHS = {"page_scan": "resident", "pq_adc": "resident",
             "hamming": "resident", "page_scan_recs": "streamed",
             "l2_distance": "mutable", "page_scan_masked": "rag",
-            "page_scan_recs_masked": "rag_streamed"}
+            "page_scan_recs_masked": "rag_streamed",
+            "page_scan_members_masked": "rag_memall",
+            "page_scan_recs_members_masked": "rag_memall_streamed"}
 
 
 def _lm_row(lm: dict, name: str) -> dict | None:
     """A kernel's numbers at d = 2048 for the kernels line: its device ms
     against its bound at the lm_serve retrieval's shapes and its launches in
-    that phase's counted 1,000-query search (0 for a kernel run at these
-    shapes but on no LM path; None for a kernel not run at them)."""
+    that phase's counted 1,000-query search (None for a kernel not run at
+    these shapes)."""
     if name not in lm["kernels"]:
         return None
     r = lm["kernels"][name]
@@ -3000,12 +3174,12 @@ def _lm_row(lm: dict, name: str) -> dict | None:
         max_abs_err=r["max_abs_err"])
 
 
-def _rag_example():
-    """``examples/serve_rag_torch.py`` as a module."""
-    sys.path.insert(0, str(ROOT / "examples"))
-    import serve_rag_torch
+def _example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib
 
-    return serve_rag_torch
+    sys.path.insert(0, str(ROOT / "examples"))
+    return importlib.import_module(name)
 
 
 def run_rag(model, arch, q, *, device: str, n_docs: int = N_RAG_DOCS) -> dict:
@@ -3013,22 +3187,26 @@ def run_rag(model, arch, q, *, device: str, n_docs: int = N_RAG_DOCS) -> dict:
     multi-agent loop (``retrieve_and_decode``) with the LM phase's model on
     the example's corpus cut to ``n_docs`` documents, then ``q`` searched
     under each agent's view through the kernels and the plain versions,
-    resident and streamed at BUDGET. Raises unless every retrieved owner
-    lies in its view, the four requests went out as two batches (one per
-    view), every replay was a cache hit, the kernels' ids equal the plain
-    versions' on >= 99% of each view's queries, streamed = resident
-    exactly, and on the card a masked page scan, ``pq_adc`` and ``hamming``
-    launched. Recall against a brute force over each view is printed, not
-    gated. ``launches`` counts the stage's kernel launches from 0."""
+    resident and streamed at BUDGET; then a MEM_ALL index of the same
+    documents and owners (capacity 1: the members-only masked scans)
+    searched the same way. Raises unless every retrieved owner lies in its
+    view, the four requests went out as two batches (one per view), every
+    replay was a cache hit, and ``_rag_view_searches``' checks hold for
+    both indexes. Recall against a brute force over each view is printed,
+    not gated. ``launches`` counts the HYBRID part's kernel launches (the
+    example's run and its view searches) from 0;
+    ``counted`` each search's (``rag``, ``rag_streamed``, ``rag_memall``,
+    ``rag_memall_streamed``)."""
     import contextlib
+    import dataclasses
     import io
 
     import numpy as np
 
-    from repro_torch.core import FilterParams, PageANNIndex, recall_at_k
+    from repro_torch.core import MemoryMode, MetadataSchema, PageANNIndex
     from repro_torch.kernels import ops
 
-    rag = _rag_example()
+    rag = _example("serve_rag_torch")
     tokens, owners, requests = rag.corpus(arch.vocab_size, n_docs)
     cfg = _lm_index_cfg(arch.d_model)
     buf = io.StringIO()
@@ -3067,6 +3245,50 @@ def run_rag(model, arch, q, *, device: str, n_docs: int = N_RAG_DOCS) -> dict:
     emit("lm_serve", stage="rag_example", **out)
 
     index, docs = res["index"], res["doc_emb"]
+    out["search"], counted = _rag_view_searches(index, docs, owner, q, views,
+                                                device=device, label="rag")
+    # the HYBRID stage's launches (launches_lm_rag); the MEM_ALL index's
+    # searches are counted under rag_memall(_streamed) alone
+    out["launches"] = ops.launch_counts()
+    # the same documents in MEM_ALL (capacity 1 at d = 2048, every code in
+    # memory): a filtered hop runs the members-only masked scans
+    cfg_mem = dataclasses.replace(cfg, memory_mode=MemoryMode.MEM_ALL)
+    _sync(device)
+    t0 = time.perf_counter()
+    mem = PageANNIndex.build(docs, cfg_mem,
+                             schema=MetadataSchema(tags=("agent",)),
+                             metadata={"agent": owners}, device=device)
+    _sync(device)
+    out["memall"] = dict(
+        capacity=cfg_mem.resolve_capacity(),
+        record_rows=int(mem.data.page_recs.shape[1]),
+        pages=int(mem.data.page_recs.shape[0]),
+        build_s=time.perf_counter() - t0,
+        memory_bytes=mem.stats.memory_bytes)
+    emit("lm_serve", stage="rag_memall_index", **out["memall"])
+    out["search_memall"], counted_mem = _rag_view_searches(
+        mem, docs, owner, q, views, device=device, label="rag_memall")
+    counted.update(counted_mem)
+    emit("lm_serve", stage="rag", counted=counted,
+         launches={k: v for k, v in out["launches"].items() if v})
+    return dict(out, counted=counted)
+
+
+def _rag_view_searches(index, docs, owner, q, views, *, device: str,
+                       label: str) -> tuple[dict, dict]:
+    """``q`` under each of ``views`` through the kernels and the plain
+    versions, resident and streamed at BUDGET. Raises unless each view's
+    kernel ids equal the plain ids on >= 99% of queries, streamed =
+    resident exactly, every returned document lies in its view, and on the
+    card the masked page scan of the index's mode (members only in
+    MEM_ALL), ``pq_adc`` and ``hamming`` launched resident and its staged
+    variant streamed. Returns (a row a view, the launches counted under
+    ``label`` and ``label + "_streamed"``)."""
+    import numpy as np
+
+    from repro_torch.core import FilterParams, PageANNIndex, recall_at_k
+    from repro_torch.kernels import ops
+
     SCRATCH.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(dir=SCRATCH))
     try:
@@ -3075,11 +3297,12 @@ def run_rag(model, arch, q, *, device: str, n_docs: int = N_RAG_DOCS) -> dict:
                                      memory_budget=BUDGET)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    searches, counted = {}, {"rag": {}, "rag_streamed": {}}
+    s_label = label + "_streamed"
+    searches, counted = {}, {label: {}, s_label: {}}
     for agent, expr in views.items():
         index.search(q[:8], k=10, filter=expr)            # warm-up
         runs = {}
-        for label, idx in (("rag", index), ("rag_streamed", streamed)):
+        for run, idx in ((label, index), (s_label, streamed)):
             before = ops.launch_counts()
             _sync(device)
             t0 = time.perf_counter()
@@ -3090,9 +3313,9 @@ def run_rag(model, arch, q, *, device: str, n_docs: int = N_RAG_DOCS) -> dict:
                         for k, v in ops.launch_counts().items()
                         if v > before.get(k, 0)}
             for k, v in launches.items():
-                counted[label][k] = counted[label].get(k, 0) + v
-            runs[label] = (got, wall, launches)
-        got, wall, launches = runs["rag"]
+                counted[run][k] = counted[run].get(k, 0) + v
+            runs[run] = (got, wall, launches)
+        got, wall, launches = runs[label]
         _sync(device)
         t0 = time.perf_counter()
         plain = index.search(q, k=10, filter=expr, impl="plain")
@@ -3101,47 +3324,44 @@ def run_rag(model, arch, q, *, device: str, n_docs: int = N_RAG_DOCS) -> dict:
         sel = index.compiled_filter(expr)[1]
         agree = float((got.ids == plain.ids).all(1).mean())
         row = dict(
-            view=agent, selectivity=sel, queries=len(q),
+            view=agent, mode=index.cfg.memory_mode.value,
+            capacity=index.cfg.resolve_capacity(), selectivity=sel,
+            queries=len(q),
             beam=index.default_params.beam_width * index._filter_oversample(
                 sel, FilterParams().max_filter_oversample),
             ms=wall * 1e3, plain_ms=plain_wall * 1e3,
-            streamed_ms=runs["rag_streamed"][1] * 1e3,
+            streamed_ms=runs[s_label][1] * 1e3,
             recall_at_10=recall_at_k(got.ids, truth),
             plain_recall_at_10=recall_at_k(plain.ids, truth),
             ids_agree_share=agree,
             ios_hops_agree_share=float(((got.ios == plain.ios)
                                         & (got.hops == plain.hops)).mean()),
             mean_ios=float(np.mean(got.ios)), mean_hops=float(np.mean(got.hops)),
-            launches=launches, streamed_launches=runs["rag_streamed"][2])
+            launches=launches, streamed_launches=runs[s_label][2])
         searches[agent] = row
-        emit("lm_serve", stage="rag_search", **row)
+        emit("lm_serve", stage=f"{label}_search", **row)
         for what, ids in (("kernels", got.ids), ("plain", plain.ids)):
             found = owner[ids[ids >= 0]]
             if not set(found) <= {agent, "shared"} or not passing[
                     ids[ids >= 0]].all():
-                raise AssertionError(f"lm_serve rag {agent}: the {what} search "
-                                     "returned a document outside the view")
+                raise AssertionError(f"lm_serve {label} {agent}: the {what} "
+                                     "search returned a document outside the "
+                                     "view")
         if agree < 0.99:
-            raise AssertionError(f"lm_serve rag {agent}: kernel and plain ids "
-                                 f"agree on only {agree:.4f} of queries")
-        _search_equal(runs["rag_streamed"][0], got,
-                      f"lm_serve rag {agent}: streamed")
-    out["search"] = searches
-    out["launches"] = ops.launch_counts()
+            raise AssertionError(f"lm_serve {label} {agent}: kernel and plain "
+                                 f"ids agree on only {agree:.4f} of queries")
+        _search_equal(runs[s_label][0], got,
+                      f"lm_serve {label} {agent}: streamed")
     if str(device).startswith("cuda"):
-        res_counts = counted["rag"]
-        never = [k for k in ("pq_adc", "hamming") if not res_counts.get(k)]
-        if not (res_counts.get("page_scan_masked")
-                or res_counts.get("page_scan_recs_masked")):
-            never.append("page_scan_masked / page_scan_recs_masked")
-        if not counted["rag_streamed"].get("page_scan_recs_masked"):
-            never.append("page_scan_recs_masked (streamed)")
+        members = "_members" if index.cfg.memory_mode.value == "mem_all" else ""
+        need = {label: ("pq_adc", "hamming", f"page_scan{members}_masked"),
+                s_label: (f"page_scan_recs{members}_masked",)}
+        never = [f"{k} ({run})" for run, names in need.items() for k in names
+                 if not counted[run].get(k)]
         if never:
-            raise AssertionError(f"lm_serve rag: {never} never launched in the "
-                                 "filtered searches")
-    emit("lm_serve", stage="rag", counted=counted,
-         launches={k: v for k, v in out["launches"].items() if v})
-    return dict(out, counted=counted)
+            raise AssertionError(f"lm_serve {label}: {never} never launched "
+                                 "in the filtered searches")
+    return searches, counted
 
 
 def run_lm_serve(s: Smoke, *, device: str, seed: int, smoke_arch: bool = False,
@@ -3593,6 +3813,11 @@ ADAFACTOR_BATCH, ADAFACTOR_SEQ = 4, 256
 CUT_BATCH, CUT_SEQ = 4, 64
 CUT_REL, CUT_REL_BF16 = 1e-5, 1e-2
 MB_ATOL, MB_RTOL = 5e-4, 5e-3        # tests/test_train_step.py's bounds
+# granite's step with activation_dtype="bfloat16" (the reference's
+# hillclimb lever; parameters and optimizer stay float32, TF32 stays off):
+# its forward's loss against the float32 forward's on the same parameters
+# and batch, relative (tests/test_torch_train_step.py's bound)
+BF16_LOSS_REL = 2.0 ** -9
 
 
 def _host_space() -> dict:
@@ -3652,6 +3877,47 @@ def _first_leaf(model):
     return next(model.parameters()).detach().clone()
 
 
+def _train_inputs(arch, *, device, seed: int):
+    """The full-width stages' shape and batch (the pipeline's batch 0)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer as tf
+
+    shape = ShapeConfig("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train",
+                        num_microbatches=TRAIN_MB)
+    batch = {k: tf.to_tensor(v, device) for k, v in
+             TokenPipeline(arch, shape, seed=seed).batch(0).items()}
+    return shape, batch
+
+
+def _train_timed(step_fn, state, batch, *, device, what: str):
+    """One warm-up step and TRAIN_STEPS timed on ``batch``; raises unless
+    the losses are finite and falling and the parameters moved; one more
+    step profiled on the card. Returns (state, the step's numbers)."""
+    import numpy as np
+
+    before = _first_leaf(state.params)
+    state, warm, _ = _timed_steps(step_fn, state, batch, 1, device)
+    state, losses, walls = _timed_steps(step_fn, state, batch, TRAIN_STEPS,
+                                        device)
+    losses = warm + losses
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_train: {what}: losses {losses} not finite "
+                             "and falling on a repeated batch")
+    moved = float((_first_leaf(state.params) - before).abs().max())
+    if not moved > 0:
+        raise AssertionError(f"lm_train: {what}: parameters did not move")
+    step_ms = float(np.median(walls)) * 1e3
+    peak = _peak_gb(device)
+    profile = None
+    if str(device).startswith("cuda"):
+        profile = _profile_step(lambda: step_fn(state, batch), step_ms)
+    return state, dict(
+        losses=losses, param_moved=moved, step_s_runs=walls, step_ms=step_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), peak_gb=peak,
+        profile=profile)
+
+
 def _train_full_width(*, device, seed: int, smoke: bool) -> dict:
     """granite-3-2b's full CONFIG with AdamW at remat ``dots``: one warm-up
     step, TRAIN_STEPS timed on the same batch (the loss must fall), one
@@ -3659,18 +3925,13 @@ def _train_full_width(*, device, seed: int, smoke: bool) -> dict:
     the state (for the checkpoint round trip)."""
     import dataclasses
 
-    import numpy as np
     import torch
 
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
-    from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models import transformer as tf
     from repro_torch.train.step import init_train_state, make_train_step
 
     arch = get_arch(TRAIN_ARCH, smoke=smoke)
-    shape = ShapeConfig("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train",
-                        num_microbatches=TRAIN_MB)
     _reset_peak(device)
     t0 = time.perf_counter()
     state = init_train_state(arch, torch.Generator(device=device)
@@ -3678,25 +3939,9 @@ def _train_full_width(*, device, seed: int, smoke: bool) -> dict:
     _sync(device)
     init_s = time.perf_counter() - t0
     state_gb = _peak_gb(device)
-    batch = {k: tf.to_tensor(v, device) for k, v in
-             TokenPipeline(arch, shape, seed=seed).batch(0).items()}
-    step_fn = make_train_step(arch, shape)
-    before = _first_leaf(state.params)
-    state, warm, _ = _timed_steps(step_fn, state, batch, 1, device)
-    state, losses, walls = _timed_steps(step_fn, state, batch, TRAIN_STEPS,
-                                        device)
-    losses = warm + losses
-    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"lm_train: {arch.name}: losses {losses} not "
-                             "finite and falling on a repeated batch")
-    moved = float((_first_leaf(state.params) - before).abs().max())
-    if not moved > 0:
-        raise AssertionError(f"lm_train: {arch.name}: parameters did not move")
-    step_ms = float(np.median(walls)) * 1e3
-    peak = _peak_gb(device)
-    profile = None
-    if str(device).startswith("cuda"):
-        profile = _profile_step(lambda: step_fn(state, batch), step_ms)
+    shape, batch = _train_inputs(arch, device=device, seed=seed)
+    state, timed = _train_timed(make_train_step(arch, shape), state, batch,
+                                device=device, what=arch.name)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_mm = _matmul_params(state.params)
     pbytes = tf.param_bytes(state.params)
@@ -3710,10 +3955,7 @@ def _train_full_width(*, device, seed: int, smoke: bool) -> dict:
         params=sum(p.numel() for p in state.params.parameters()),
         matmul_params=n_mm, param_bytes=pbytes, batch=TRAIN_BATCH,
         seq_len=TRAIN_SEQ, microbatches=TRAIN_MB, init_s=init_s,
-        state_gb=state_gb, losses=losses, param_moved=moved,
-        step_s_runs=walls, step_ms=step_ms,
-        tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak,
-        profile=profile, **bound)
+        state_gb=state_gb, **timed, **bound)
 
     full = dataclasses.replace(arch, remat="full")
     full_fn = make_train_step(full, shape)
@@ -3726,6 +3968,82 @@ def _train_full_width(*, device, seed: int, smoke: bool) -> dict:
                              step_ms=full_walls[-1] * 1e3,
                              peak_gb=_peak_gb(device), losses=full_losses)
     return out, state
+
+
+def _products_in(fn, dtype):
+    """``fn()`` under a dispatch mode that counts the matrix products (aten
+    ``mm``, ``bmm``, ``addmm``, ``baddbmm``) and those with an operand of
+    ``dtype``. Returns (fn's result, (products in ``dtype``, products))."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    products = {aten.mm.default, aten.bmm.default, aten.addmm.default,
+                aten.baddbmm.default}
+    seen = [0, 0]
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in products:
+                seen[1] += 1
+                seen[0] += any(isinstance(a, torch.Tensor)
+                               and a.dtype == dtype for a in args)
+            return func(*args, **(kwargs or {}))
+
+    with _Count():
+        out = fn()
+    return out, tuple(seen)
+
+
+def _train_bf16(state, f32: dict, *, device, seed: int, smoke: bool) -> dict:
+    """granite's step with ``activation_dtype="bfloat16"`` on
+    ``_train_full_width``'s state (no second init): first the bf16 and the
+    float32 forward's loss on the same parameters and batch, within
+    BF16_LOSS_REL and not equal, with the bf16 forward's matrix products
+    counted (some must take bf16 operands, or the lever is not in effect);
+    then one warm-up step and TRAIN_STEPS timed (losses finite and falling,
+    parameters moved), one profiled. Two bounds: the float32 one of ``f32``
+    (67 TFLOP/s) and the flops over the card's dense bf16 peak (989
+    TFLOP/s, data sheet), an estimate: the step's norms, softmax and
+    optimizer stay float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import make_train_step
+
+    arch = get_arch(TRAIN_ARCH, smoke=smoke)
+    bf16 = dataclasses.replace(arch, activation_dtype="bfloat16")
+    shape, batch = _train_inputs(arch, device=device, seed=seed)
+    with torch.no_grad():
+        loss32 = float(tf.loss_fn(state.params, batch, arch)[0])
+        loss16, (n_bf16, n_products) = _products_in(
+            lambda: float(tf.loss_fn(state.params, batch, bf16)[0]),
+            torch.bfloat16)
+    rel = abs(loss16 - loss32) / abs(loss32)
+    if not 0 < rel <= BF16_LOSS_REL or not n_bf16 > 0:
+        raise AssertionError(
+            f"lm_train bf16: loss {loss16} against float32 {loss32} "
+            f"({rel:.2e} relative, bound {BF16_LOSS_REL}, must differ), "
+            f"{n_bf16} of {n_products} matrix products in bf16 (must be > 0)")
+    _reset_peak(device)
+    state, timed = _train_timed(make_train_step(bf16, shape), state, batch,
+                                device=device, what=f"{arch.name} bf16")
+    return dict(
+        arch=arch.name, activation_dtype=bf16.activation_dtype,
+        param_dtype=bf16.param_dtype, loss_f32=loss32, loss_bf16=loss16,
+        loss_rel_diff=rel, loss_rel_tol=BF16_LOSS_REL,
+        bf16_products=n_bf16, products=n_products, **timed,
+        f32_step_ms=f32["step_ms"], f32_peak_gb=f32["peak_gb"],
+        f32_tokens_per_s=f32["tokens_per_s"],
+        f32_profile=f32["profile"] and {
+            k: f32["profile"][k] for k in ("device_busy_ms", "device_launches",
+                                           "device_idle_share")},
+        bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+        bf16_bound_ms_estimate=f32["operations"] / PEAK_FLOPS_BF16 * 1e3)
 
 
 def _checkpoint_round_trip(model, *, device, seed: int) -> dict:
@@ -3951,7 +4269,8 @@ def _train_drill(*, device, seed: int) -> dict:
 def run_lm_train(s: Smoke, *, device: str, seed: int,
                  smoke_arch: bool = False) -> dict:
     """Training on the card: granite-3-2b at full width (AdamW, remat
-    ``dots``, then ``full``), its checkpoint round trip, qwen1.5-110b's
+    ``dots``, then ``full``, then with bf16 activations on the same state),
+    its checkpoint round trip, qwen1.5-110b's
     Adafactor step at ADAFACTOR_DEPTH layers, the cuts card against CPU
     and the driver's drill. ``smoke_arch`` takes the SMOKE configs, for a
     CPU rehearsal."""
@@ -3966,6 +4285,11 @@ def run_lm_train(s: Smoke, *, device: str, seed: int,
                                               smoke=smoke_arch)
     emit("lm_train", stage="full_width", seconds=time.perf_counter() - t0,
          **out["granite"])
+    t0 = time.perf_counter()
+    out["bf16"] = _train_bf16(state, out["granite"], device=device, seed=seed,
+                              smoke=smoke_arch)
+    emit("lm_train", stage="bf16", seconds=time.perf_counter() - t0,
+         **out["bf16"])
     t0 = time.perf_counter()
     out["checkpoint"] = _checkpoint_round_trip(state.params, device=device,
                                                seed=seed)
@@ -4334,6 +4658,8 @@ def _main(args, torch, t_start, started: list) -> int:
     smoke = Smoke(torch, args.seed)
     cfg_h = PageANNConfig(dim=128, build_rounds=1, memory_mode=MemoryMode.HYBRID)
     cfg_m = PageANNConfig(dim=128, build_rounds=1, memory_mode=MemoryMode.MEM_ALL)
+    cfg_d = PageANNConfig(dim=128, build_rounds=1,
+                          memory_mode=MemoryMode.DISK_ONLY)
     dev_info = phase_device(torch)
     phase_build()
     phase_kernels(smoke, cfg_h, cfg_m, args.n, N_QUERIES)
@@ -4364,6 +4690,8 @@ def _main(args, torch, t_start, started: list) -> int:
         if hybrid and run["recall_at_10"] < MIN_RECALL:
             raise AssertionError(
                 f"HYBRID recall@10 {run['recall_at_10']} < {MIN_RECALL}")
+        if hybrid:
+            hybrid_memory_bytes = run["stats"]["memory_bytes"]
         names = (("page_scan", "pq_adc", "hamming") if hybrid
                  else ("page_scan_members",))
         for name in names:
@@ -4402,6 +4730,11 @@ def _main(args, torch, t_start, started: list) -> int:
                 smoke, ctx, device="cuda")["launches"]
         del ctx
         torch.cuda.empty_cache()
+    disk_only_launches = run_disk_only(
+        cfg_d, device="cuda", seed=args.seed,
+        hybrid_memory_bytes=hybrid_memory_bytes)
+    torch.cuda.empty_cache()
+    quickstart_launches = run_quickstart(device="cuda", seed=args.seed)
     run_compaction(cfg_h, device="cuda", seed=args.seed)
     # the distance-only hamming has no caller but its entry point: its path
     # is the one counted call of the kernels phase
@@ -4427,6 +4760,11 @@ def _main(args, torch, t_start, started: list) -> int:
             launches_lm_serve=sum(run.get(name, 0) for run in
                                   lm["driver_launches"].values()),
             launches_lm_rag=lm["rag"]["launches"].get(name, 0),
+            launches_lm_rag_memall=sum(
+                lm["rag"]["counted"][k].get(name, 0)
+                for k in ("rag_memall", "rag_memall_streamed")),
+            launches_disk_only=disk_only_launches.get(name, 0),
+            launches_quickstart=quickstart_launches.get(name, 0),
             lm_serve_d2048=_lm_row(lm, name),
             launches_lm_families=sum(run.get(name, 0) for run in
                                      fam["d4096"]["driver_launches"].values()),

@@ -32,8 +32,9 @@ from repro_torch.device import resolve_device
 
 def main(argv=None, *, device: str = "cuda", n: int = 5000) -> dict:
     """The lifecycle over ``n`` clustered vectors at d = 32 (5,000 as in the
-    reference). Returns the first search's recall@10 and whether the
-    reloaded index's search was identical."""
+    reference). Returns the first search's recall@10, whether the
+    reloaded index's search was identical, and the index and its vectors
+    (``index``, ``vectors``) for a caller that searches it further."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=device)
     device = resolve_device(ap.parse_args(argv or []).device)
@@ -88,7 +89,8 @@ def main(argv=None, *, device: str = "cuda", n: int = 5000) -> dict:
             raise SystemExit("save/load round trip diverged")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    return {"recall_at_10": recall, "identical": identical}
+    return {"recall_at_10": recall, "identical": identical, "index": index,
+            "vectors": x}
 
 
 if __name__ == "__main__":

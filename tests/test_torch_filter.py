@@ -17,7 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import MemoryMode as JMode
+from repro.core import MetadataSchema as JSchema
 from repro.core import Num as JNum
+from repro.core import PageANNConfig as JConfig
+from repro.core import PageANNIndex as JIndex
+from repro.core import SearchParams as JParams
 from repro.core import Tag as JTag
 from repro.core import filter as jfilter
 from repro.core import load_index as jax_load_index
@@ -36,6 +41,7 @@ from repro_torch.core import (
 )
 from repro_torch.core import filter as tfilter
 from repro_torch.core import lsh as tlsh
+from repro_torch.data.pipeline import clustered_vectors, query_vectors
 from torch_jax_artifacts import NUMERICS, TAGS, cfg_kwargs, dataset, metadata_artifact
 
 # six test workers share the host's cores; the port's small searches gain
@@ -120,6 +126,67 @@ def test_streamed_filtered_search_equals_resident_bit_for_bit(loaded):
         _assert_equal(streamed.search(q, K, filter=expr),
                       tindex.search(q, K, filter=expr),
                       ("ids", "dists", "ios", "hops", "cache_hits"))
+
+
+# MEM_ALL at capacity 1 with a tag per owner, as the LM-width RAG index
+# has it (d = 2048 there): each member spans several 128-lane rows, every
+# neighbour code lies in memory, so a filtered hop runs the members-only
+# masked page scan
+WIDE_N, WIDE_D = 400, 256
+AGENTS = ("support", "research")
+
+
+@pytest.fixture(scope="module")
+def wide_memall(tmp_path_factory):
+    """(JAX MEM_ALL index at capacity 1 over WIDE_N x WIDE_D vectors with an
+    ``agent`` tag, its saved directory, the queries, the owners)."""
+    x = clustered_vectors(WIDE_N, WIDE_D, num_clusters=16, seed=3)
+    q = query_vectors(x, 8, seed=4)
+    owners = np.random.default_rng(5).choice(
+        [*AGENTS, "shared"], WIDE_N).tolist()
+    cfg = JConfig(dim=WIDE_D, graph_degree=12, build_beam=24, pq_subspaces=8,
+                  lsh_sample=256, lsh_entries=8, beam_width=48, max_hops=48,
+                  page_capacity=1, memory_mode=JMode.MEM_ALL)
+    jindex = JIndex.build(x, cfg, schema=JSchema(tags=("agent",)),
+                          metadata={"agent": owners})
+    jindex.warm_cache(np.asarray(q), params=JParams.from_config(cfg))
+    directory = str(tmp_path_factory.mktemp("wide") / "idx.mem_all")
+    jindex.save(directory)
+    return jindex, directory, q, np.asarray(owners)
+
+
+@pytest.mark.parametrize("agent", AGENTS)
+def test_memall_capacity_one_tag_views_match_the_reference(wide_memall, agent):
+    """Each agent's view ``Tag("agent").isin(agent, "shared")``: ids, ios
+    and hops equal the reference's (distances within rtol = atol = 1e-5),
+    every returned document lies in the view, and a search streamed at a
+    0.25 budget equals the resident one bit for bit."""
+    jindex, directory, q, owners = wide_memall
+    tindex = load_pageann(directory, device="cpu")
+    assert tindex.stats.capacity == 1
+    assert tindex.data.page_recs.shape[1] * 128 >= 2 * WIDE_D
+    planes = np.array(jindex.lsh.planes)
+    flips = np.nonzero((tlsh.hash_codes(torch.as_tensor(q), torch.as_tensor(planes))
+                        .numpy().view(np.uint32)
+                        != np.asarray(jlsh.hash_codes(jnp.asarray(q), jnp.asarray(planes))))
+                       .any(1))[0]
+    assert len(flips) <= 1
+    keep = np.setdiff1d(np.arange(len(q)), flips)
+    texpr, jexpr = Tag("agent").isin(agent, "shared"), JTag("agent").isin(agent, "shared")
+    rj = jindex.search(q, K, filter=jexpr)
+    rt = tindex.search(q, K, filter=texpr)
+    for field in ("ids", "ios", "hops"):
+        np.testing.assert_array_equal(getattr(rt, field)[keep],
+                                      np.asarray(getattr(rj, field))[keep],
+                                      err_msg=field)
+    np.testing.assert_allclose(rt.dists[keep], np.asarray(rj.dists)[keep], **TOL)
+    assert (rt.ids[:, 0] >= 0).all()
+    assert set(owners[rt.ids[rt.ids >= 0]]) <= {agent, "shared"}
+    assert _passes(tindex, rt.ids, texpr).all()
+    streamed = load_pageann(directory, device="cpu", memory_budget=0.25)
+    assert streamed.fetcher is not None
+    _assert_equal(streamed.search(q, K, filter=texpr), rt,
+                  ("ids", "dists", "ios", "hops", "cache_hits"))
 
 
 def test_no_filter_is_bit_identical_to_metadata_free_build():

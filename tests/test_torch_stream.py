@@ -100,13 +100,16 @@ def test_fetcher_lru_eviction_and_counters_match_the_reference():
 
 
 # ----------------------------------------------------------- MemoryBudget
-@pytest.mark.parametrize("budget", ["fraction", "bytes"])
+@pytest.mark.parametrize("budget", ["fraction", "bytes", "one_page"])
 def test_budgeted_load_pins_the_reference_pages(artifact, budget):
+    """``one_page``: one byte, ``MemoryBudget(bytes=1)``, resolves to the
+    floor of one resident page in both packages."""
     _, directory = artifact
     doc = persist.read_manifest(directory)
     pages = doc["pages"]
-    spec = (0.25 if budget == "fraction"
-            else int(pages * 0.3) * doc["page_record_bytes"] + 17)
+    spec = {"fraction": 0.25,
+            "bytes": int(pages * 0.3) * doc["page_record_bytes"] + 17,
+            "one_page": 1}[budget]
     tindex = load_pageann(directory, device="cpu", memory_budget=spec)
     jindex = jax_load_index(directory, memory_budget=JBudget.parse(spec))
     np.testing.assert_array_equal(tindex.store.resident_map.numpy(),
@@ -115,6 +118,8 @@ def test_budgeted_load_pins_the_reference_pages(artifact, budget):
                                   np.asarray(jindex.store.recs))
     assert tindex.memory_budget == MemoryBudget.parse(spec)
     assert tindex.stats.resident_pages == jindex.stats.resident_pages < pages
+    if budget == "one_page":
+        assert tindex.stats.resident_pages == 1
     assert tindex.stats.resident_bytes == jindex.stats.resident_bytes
     assert isinstance(tindex.fetcher, PageFetcher)
     # a budget that covers every page loads fully resident, with no fetcher
@@ -124,15 +129,30 @@ def test_budgeted_load_pins_the_reference_pages(artifact, budget):
 
 
 # ------------------------------------------------------------ search
-def test_streamed_search_matches_the_reference(artifact, record_property):
+# a quarter of the pages resident, and one resident page (one byte: the
+# floor), where nearly every page is read through the fetcher
+STREAM_BUDGETS = {"fraction": MemoryBudget(fraction=0.25),
+                  "one_page": MemoryBudget(bytes=1)}
+
+
+@pytest.mark.parametrize("budget", list(STREAM_BUDGETS))
+def test_streamed_search_matches_the_reference(artifact, budget,
+                                               record_property):
+    """ids, ios, hops and cache hits equal the reference's streamed search
+    at the same budget, distances within TOL, and every field equals the
+    port's resident search."""
     jindex, directory = artifact
     _, q, _ = dataset()
     flips = _sign_flips(jindex, q)
     record_property("sign_flip_queries", flips.tolist())
     assert len(flips) <= 1
     keep = np.setdiff1d(np.arange(len(q)), flips)
-    rj = jax_load_index(directory, memory_budget=JBudget(fraction=0.25)).search(q, k=10)
-    tindex = load_pageann(directory, device="cpu", memory_budget=0.25)
+    spec = STREAM_BUDGETS[budget]
+    rj = jax_load_index(directory, memory_budget=JBudget(
+        fraction=spec.fraction, bytes=spec.bytes)).search(q, k=10)
+    tindex = load_pageann(directory, device="cpu", memory_budget=spec)
+    if budget == "one_page":
+        assert tindex.stats.resident_pages == 1
     rt = tindex.search(q, k=10)
     for field in ("ids", "ios", "hops", "cache_hits"):
         np.testing.assert_array_equal(getattr(rt, field)[keep],
@@ -140,6 +160,10 @@ def test_streamed_search_matches_the_reference(artifact, record_property):
                                       err_msg=field)
     np.testing.assert_allclose(rt.dists[keep], np.asarray(rj.dists)[keep], **TOL)
     assert tindex.fetch_stats()["pages_fetched"] > 0
+    want = load_pageann(directory, device="cpu").search(q, k=10)
+    for field in FIELDS:
+        np.testing.assert_array_equal(getattr(rt, field), getattr(want, field),
+                                      err_msg=field)
 
 
 def test_streamed_search_equals_resident_bit_for_bit(artifact, tmp_path):
@@ -174,3 +198,4 @@ def test_streamed_search_equals_resident_bit_for_bit(artifact, tmp_path):
     np.testing.assert_array_equal(again.page_order, streamed.page_order)
     np.testing.assert_array_equal(again.search(q, k=10).ids,
                                   resident.search(q, k=10).ids)
+
