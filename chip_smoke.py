@@ -1151,7 +1151,10 @@ def _profile_search(index, q, sample: int | None = None,
         wall = time.perf_counter() - t0
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # the search's spans are mirrored on the card's timeline as
+        # annotations that cover each span whole: no work of the card
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
             by_name[e.name][1] += 1
     busy = sum(ms for ms, _ in by_name.values())
@@ -2885,7 +2888,8 @@ def _profile_step(fn, wall_ms: float) -> dict:
     kern = [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
-            and not getattr(e, "is_hidden_event", lambda: False)()]
+            and not getattr(e, "is_hidden_event", lambda: False)()
+            and not getattr(e, "is_user_annotation", lambda: False)()]
     busy = sum(ms for _, ms in kern)
     by_name: dict = {}
     for name, ms_e in kern:

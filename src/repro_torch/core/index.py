@@ -38,6 +38,7 @@ from repro_torch.core.config import (
 )
 from repro_torch.core.filter import FilterExpr, MetaArrays, MetadataSchema
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import span
 
 PAD = -1
 
@@ -100,6 +101,9 @@ class PageANNIndex:
     # the streamed tier's pinned staging buffer, kept across searches
     _stage: search_mod.PinnedStage | None = dataclasses.field(
         default=None, repr=False)
+    # span tracer (``obs.trace``; duck-typed) taking the search's phases;
+    # a serving engine hangs its own here
+    tracer: object | None = dataclasses.field(default=None, repr=False)
 
     # ------------------------------------------------------------------ build
     @staticmethod
@@ -282,7 +286,7 @@ class PageANNIndex:
     ) -> search_mod.SearchResult:
         kw = dict(capacity=self.store.capacity,
                   mode=self.cfg.memory_mode.value,
-                  meta=meta, cfilter=cfilter, impl=impl)
+                  meta=meta, cfilter=cfilter, impl=impl, tracer=self.tracer)
         if mesh is not None:
             if self.fetcher is not None:
                 raise ValueError(
@@ -393,12 +397,26 @@ class PageANNIndex:
         the predicate's measured selectivity (at most
         ``filter_params.max_filter_oversample``) so recall matches a
         post-filter brute force. ``filter=None`` is the unfiltered search.
+
+        The call is the span ``pageann.search`` (``obs.trace.span``, into
+        ``tracer``), holding ``pageann.upload`` (the queries to the
+        device), the search's own spans (``core.search``) and
+        ``pageann.download`` (results to the host, ids translated).
         """
-        p, meta, cfilter = self._filtered(
-            self.resolve_params(k, params), filter, filter_params)
-        res = self._raw_search(self._queries(queries), p, impl=impl,
-                               meta=meta, cfilter=cfilter, mesh=mesh)
-        return self._host_result(res)
+        tr = self.tracer
+        with span(tr, "pageann.search", cat=search_mod.TRACK,
+                  track=search_mod.TRACK) as sp:
+            p, meta, cfilter = self._filtered(
+                self.resolve_params(k, params), filter, filter_params)
+            with span(tr, "pageann.upload", cat=search_mod.TRACK,
+                      track=search_mod.TRACK):
+                q = self._queries(queries)
+            sp.note(queries=q.shape[0], k=p.k, mode=self.cfg.memory_mode.value)
+            res = self._raw_search(q, p, impl=impl, meta=meta,
+                                   cfilter=cfilter, mesh=mesh)
+            with span(tr, "pageann.download", cat=search_mod.TRACK,
+                      track=search_mod.TRACK):
+                return self._host_result(res)
 
     def _filtered(self, p: SearchParams, filter: FilterExpr | None,
                   filter_params: FilterParams | None):

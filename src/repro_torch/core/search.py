@@ -25,6 +25,12 @@ finished query's state never changes. The loop ends when no lane is active,
 which costs one host sync per hop. Early termination is one more reason to
 freeze a lane: its worst top-k distance stalled for ``patience`` hops.
 
+Each phase is a span (``obs.trace.span``, on the ``search`` track):
+``pageann.start`` (LUTs and routing), and one ``pageann.hop`` a loop
+iteration, with its ``hop`` index and active ``lanes``, holding
+``pageann.hop.sync`` (the blocking ``nonzero``) and, when a lane is active,
+``pageann.hop.select``, ``pageann.hop.score`` and ``pageann.hop.merge``.
+
 Streamed search (``stream_search``) keeps only part of the page records on
 the device. Each hop looks its pages up in ``resident_map``, reads the
 missing records on the host through a ``core.stream.PageFetcher`` between
@@ -58,9 +64,11 @@ from repro_torch.core.filter import CompiledFilter, MetaArrays, filter_mask
 from repro_torch.core.layout import MemoryTier, PageStore
 from repro_torch.core.lsh import LSHIndex, hash_codes
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import span
 
 PAD = -1
 INF = float("inf")
+TRACK = "search"        # the spans' track (``obs.trace``)
 
 
 class SearchData(NamedTuple):
@@ -591,6 +599,7 @@ def _hop(
     meta: MetaArrays | None,
     cfilter: CompiledFilter | None,
     impl: str | None,
+    tracer=None,
 ) -> tuple[BeamState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One hop of the active ``lanes``; the other lanes stay frozen.
     Returns the new state (the input's tensors, written in place, when a
@@ -603,12 +612,16 @@ def _hop(
         sub = BeamState(*(None if t is None else t[lanes] for t in state))
         q, dl = queries[lanes], disk_lut[lanes]
         ml = None if mem_lut is None else mem_lut[lanes]
-    sub, batch = select_batch(sub, capacity=kn.capacity, io_batch=kn.io_batch)
-    scored = score_page_batch(
-        q, data, batch, sub, dl, ml, capacity=kn.capacity, mode=kn.mode,
-        fetch=fetch, meta=meta, cfilter=cfilter, impl=impl,
-    )
-    sub = merge(sub, *scored, patience=kn.patience, epsilon=kn.epsilon)
+    with span(tracer, "pageann.hop.select", cat=TRACK, track=TRACK):
+        sub, batch = select_batch(sub, capacity=kn.capacity,
+                                  io_batch=kn.io_batch)
+    with span(tracer, "pageann.hop.score", cat=TRACK, track=TRACK):
+        scored = score_page_batch(
+            q, data, batch, sub, dl, ml, capacity=kn.capacity, mode=kn.mode,
+            fetch=fetch, meta=meta, cfilter=cfilter, impl=impl,
+        )
+    with span(tracer, "pageann.hop.merge", cat=TRACK, track=TRACK):
+        sub = merge(sub, *scored, patience=kn.patience, epsilon=kn.epsilon)
     if not everyone:
         # frozen lanes keep their state; the loop owns these tensors
         for full, part in zip(state, sub):
@@ -636,6 +649,7 @@ def batch_search(
     cfilter: CompiledFilter | None = None,
     impl: str | None = None,
     fetch: PinnedStage | None = None,
+    tracer=None,
 ) -> SearchResult:
     """Search a batch of queries. queries: (Q, d) on the data's device.
 
@@ -647,16 +661,25 @@ def batch_search(
     and ``cfilter`` (the compiled predicate); with both ``None`` the search
     is the unfiltered one. ``impl="plain"`` runs every kernel's plain
     version (tests and the chip smoke compare the two). ``fetch`` is the
-    streamed tier's hook; callers go through ``stream_search``.
+    streamed tier's hook; callers go through ``stream_search``. ``tracer``
+    takes the phases' spans (``obs.trace.span``).
     """
     kn = _knobs(params, capacity, mode)
-    state, disk_lut, mem_lut = _start(queries, data, kn, impl)
+    with span(tracer, "pageann.start", cat=TRACK, track=TRACK):
+        state, disk_lut, mem_lut = _start(queries, data, kn, impl)
+    h = 0
     while True:
-        lanes = _active(state, kn).nonzero().squeeze(1)
-        if lanes.numel() == 0:                 # the hop's one host sync
-            break
-        state = _hop(state, lanes, queries, disk_lut, mem_lut, data, kn,
-                     fetch=fetch, meta=meta, cfilter=cfilter, impl=impl)[0]
+        with span(tracer, "pageann.hop", cat=TRACK, track=TRACK) as hop:
+            with span(tracer, "pageann.hop.sync", cat=TRACK, track=TRACK):
+                lanes = _active(state, kn).nonzero().squeeze(1)
+                n = lanes.numel()              # the hop's one host sync
+            hop.note(hop=h, lanes=n)
+            if n == 0:
+                break
+            state = _hop(state, lanes, queries, disk_lut, mem_lut, data, kn,
+                         fetch=fetch, meta=meta, cfilter=cfilter, impl=impl,
+                         tracer=tracer)[0]
+        h += 1
     return _result(state)
 
 
@@ -672,6 +695,7 @@ def stream_search(
     cfilter: CompiledFilter | None = None,
     impl: str | None = None,
     stage: PinnedStage | None = None,
+    tracer=None,
 ) -> SearchResult:
     """``batch_search`` over a budgeted index: ``data.page_recs`` holds
     only the resident pages, and each hop's misses are read from the host
@@ -689,7 +713,7 @@ def stream_search(
         stage = PinnedStage(fetcher)
     return batch_search(
         queries, data, params, capacity=capacity, mode=mode, meta=meta,
-        cfilter=cfilter, impl=impl, fetch=stage,
+        cfilter=cfilter, impl=impl, fetch=stage, tracer=tracer,
     )
 
 
@@ -704,6 +728,7 @@ def shard_search(
     meta: MetaArrays | None = None,
     cfilter: CompiledFilter | None = None,
     impl: str | None = None,
+    tracer=None,
 ) -> SearchResult:
     """``batch_search`` with the query batch split across a device mesh.
 
@@ -735,7 +760,8 @@ def shard_search(
             )
         d, m = copies[dev]
         res = batch_search(q_blk.to(dev), d, params, capacity=capacity,
-                           mode=mode, meta=m, cfilter=cfilter, impl=impl)
+                           mode=mode, meta=m, cfilter=cfilter, impl=impl,
+                           tracer=tracer)
         parts.append(SearchResult(*(t.to(out) for t in res)))
     return SearchResult(*(torch.cat(ts) for ts in zip(*parts)))
 

@@ -30,6 +30,8 @@ import time
 
 import numpy as np
 
+from repro_torch.obs.trace import span
+
 PAD = -1
 
 # default staging-cache size (pages). Big enough to absorb the hub-page
@@ -81,8 +83,8 @@ class PageFetcher:
         self._wall_window: collections.deque = collections.deque(maxlen=4096)
         # optional span tracer (duck-typed: ``enabled``, ``now()``,
         # ``add(...)``); a caller may attach one so per-hop host fetches
-        # show up as spans. The fetcher stamps spans with the tracer's own
-        # clock.
+        # show up as ``page_fetch`` spans (``obs.trace.span``), stamped
+        # with the tracer's own clock.
         self.tracer = None
 
     @property
@@ -94,44 +96,41 @@ class PageFetcher:
         return int(self._recs.shape[1]), int(self._recs.shape[2])
 
     def __call__(self, ids, out: np.ndarray | None = None) -> np.ndarray:
-        t0 = time.perf_counter()
-        ids = np.asarray(ids)
-        flat = ids.reshape(-1).astype(np.int64)
-        rows, lanes = self.record_shape
-        if out is None:
-            out = np.zeros((flat.size, rows, lanes), np.float32)
-        else:
-            out = out.reshape(-1, rows, lanes)[: flat.size]
-            out[flat < 0] = 0.0
-        with self._lock:
-            fetched0 = self._pages_fetched
-            for j, pid in enumerate(flat):
-                if pid < 0:
-                    continue
-                pid = int(pid)
-                rec = self._stage.get(pid)
-                if rec is not None:
-                    self._stage.move_to_end(pid)
-                    self._fetch_hits += 1
-                else:
-                    # THE disk read: one page record off the memmap
-                    rec = np.asarray(self._recs[pid], np.float32)
-                    self._pages_fetched += 1
-                    self._stage[pid] = rec
-                    if len(self._stage) > self._stage_pages:
-                        self._stage.popitem(last=False)     # evict LRU
-                out[j] = rec
-            wall = time.perf_counter() - t0
-            self._fetch_wall_s += wall
-            self._wall_window.append(wall)
-            misses = self._pages_fetched - fetched0
-        tr = self.tracer
-        if tr is not None and tr.enabled:
-            t1 = tr.now()
-            tr.add("page_fetch", t1 - wall, t1, cat="host-fetch",
-                   track="host-fetch",
-                   args={"requested": int((flat >= 0).sum()),
-                         "misses": misses})
+        with span(self.tracer, "page_fetch", cat="host-fetch",
+                  track="host-fetch") as sp:
+            t0 = time.perf_counter()
+            ids = np.asarray(ids)
+            flat = ids.reshape(-1).astype(np.int64)
+            rows, lanes = self.record_shape
+            if out is None:
+                out = np.zeros((flat.size, rows, lanes), np.float32)
+            else:
+                out = out.reshape(-1, rows, lanes)[: flat.size]
+                out[flat < 0] = 0.0
+            with self._lock:
+                fetched0, hits0 = self._pages_fetched, self._fetch_hits
+                for j, pid in enumerate(flat):
+                    if pid < 0:
+                        continue
+                    pid = int(pid)
+                    rec = self._stage.get(pid)
+                    if rec is not None:
+                        self._stage.move_to_end(pid)
+                        self._fetch_hits += 1
+                    else:
+                        # THE disk read: one page record off the memmap
+                        rec = np.asarray(self._recs[pid], np.float32)
+                        self._pages_fetched += 1
+                        self._stage[pid] = rec
+                        if len(self._stage) > self._stage_pages:
+                            self._stage.popitem(last=False)     # evict LRU
+                    out[j] = rec
+                wall = time.perf_counter() - t0
+                self._fetch_wall_s += wall
+                self._wall_window.append(wall)
+                misses = self._pages_fetched - fetched0
+                hits = self._fetch_hits - hits0
+            sp.note(requested=misses + hits, misses=misses)
         return out.reshape(ids.shape + (rows, lanes))
 
     # ------------------------------------------------------------- counters

@@ -3,15 +3,21 @@
 Port of ``repro.obs.trace`` (pure Python; copied, so the port needs no
 JAX). A serving stack emits one :class:`Span` per phase of a request's
 life (``submit``, ``queue_wait``, ``device_dispatch``, …) plus child spans
-for the host work hanging off a dispatch; in the port today the streamed
-tier's ``core.stream.PageFetcher`` emits one ``page_fetch`` span per hop
-into a tracer attached as its ``tracer``. Design constraints, in order:
+for the host work hanging off a dispatch. The program emits its own spans
+through :func:`span`: the streamed tier's ``core.stream.PageFetcher`` one
+``page_fetch`` a hop, and the search (``core.index``, ``core.search``) its
+phases on the ``search`` track: ``pageann.search`` around each
+``PageANNIndex.search``, inside it ``pageann.upload``, ``pageann.start``,
+one ``pageann.hop`` a loop iteration (its children ``pageann.hop.sync``,
+``pageann.hop.select``, ``pageann.hop.score``, ``pageann.hop.merge``) and
+``pageann.download``. Design constraints, in order:
 
   * **~zero cost when disabled** — every emission point guards on
     ``tracer.enabled`` (or on the tracer being ``None``) before touching
-    the clock or building args, and :meth:`Tracer.span` returns one
-    shared no-op context manager, so a disabled tracer adds a single
-    attribute check to the hot path;
+    the clock or building args, and :func:`span` (which
+    :meth:`Tracer.span` is) returns one shared no-op context manager, so
+    a disabled tracer adds two checks (its own and the profiler's) to the
+    hot path;
   * **bounded** — spans land in a ring buffer (``capacity``); a server
     left tracing for a week drops the oldest spans, never grows;
   * **thread-safe** — the engine dispatches from submitter and timer
@@ -22,6 +28,16 @@ into a tracer attached as its ``tracer``. Design constraints, in order:
     stays coherent under a fake clock. For a coherent multi-component
     trace, inject the same clock everywhere (the default everywhere is
     ``time.perf_counter``).
+
+A span site records into the tracer attached to the object that emits it
+(``tracer``, None by default), and, while ``torch.profiler`` records, also
+opens ``torch.profiler.record_function(name)`` (so the span sits on the
+profile's host timeline) and records into :data:`PROFILED`, a process-wide
+tracer stamped on the realtime clock kineto stamps its events with: a
+reader of a finished profile finds the program's spans there, on the
+device trace's clock. With neither on, a site costs the two checks in
+:func:`span`: no clock read and no ``record_function`` (an empty one costs
+~10 us even with no profiler running).
 
 Export: :meth:`Tracer.to_chrome_json` emits Chrome ``trace_event``
 format — complete (``ph: "X"``) events in microseconds with one tid per
@@ -36,6 +52,8 @@ import json
 import threading
 import time
 from typing import Any, Callable, NamedTuple
+
+import torch
 
 
 class Span(NamedTuple):
@@ -62,32 +80,11 @@ class _NullSpan:
     def __exit__(self, exc_type, exc, tb):
         return False
 
+    def note(self, **args):
+        """Arguments known only inside the span; dropped here."""
+
 
 _NULL_SPAN = _NullSpan()
-
-
-class _LiveSpan:
-    """Context manager recording one span on exit."""
-
-    __slots__ = ("_tracer", "_name", "_cat", "_track", "_args", "_t0")
-
-    def __init__(self, tracer, name, cat, track, args):
-        self._tracer = tracer
-        self._name = name
-        self._cat = cat
-        self._track = track
-        self._args = args
-        self._t0 = tracer._clock()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, exc_type, exc, tb):
-        self._tracer.add(
-            self._name, self._t0, self._tracer._clock(),
-            cat=self._cat, track=self._track, args=self._args,
-        )
-        return False
 
 
 class Tracer:
@@ -125,10 +122,9 @@ class Tracer:
 
     def span(self, name: str, *, cat: str = "", track: str = "main",
              **args: Any):
-        """Context manager timing one span; a no-op when disabled."""
-        if not self.enabled:
-            return _NULL_SPAN
-        return _LiveSpan(self, name, cat, track, args)
+        """Context manager timing one span into this tracer: the
+        program's emission point :func:`span` with this tracer attached."""
+        return span(self, name, cat=cat, track=track, **args)
 
     def add(
         self,
@@ -239,3 +235,84 @@ class Tracer:
 # A process-wide disabled tracer for call sites that want an always-valid
 # tracer object rather than Optional handling. Never records anything.
 NULL_TRACER = Tracer(capacity=1, enabled=False)
+
+
+class ProfilerTracer(Tracer):
+    """The tracer of spans taken while ``torch.profiler`` records.
+
+    Its clock is the realtime clock (``time.time_ns``) that the profiler's
+    kineto events carry, read as seconds since ``base_ns`` so that a span's
+    float stamps keep nanosecond resolution: ``epoch_ns(span.ts)`` puts a
+    span on a profile's timeline."""
+
+    def __init__(self, *, capacity: int = 65536):
+        base = time.time_ns()
+        super().__init__(capacity=capacity,
+                         clock=lambda: (time.time_ns() - base) * 1e-9)
+        self.base_ns = base
+
+    def epoch_ns(self, t: float) -> int:
+        """A stamp of this tracer as Unix-epoch nanoseconds."""
+        return self.base_ns + round(t * 1e9)
+
+
+# The program's spans taken while torch's profiler records, whatever tracer
+# their site has attached; bounded like any tracer.
+PROFILED = ProfilerTracer()
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class _ProgramSpan:
+    """A span of the program: recorded into its site's tracer, if one is on,
+    and while the profiler records, opened as a ``record_function`` and
+    recorded into :data:`PROFILED`."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_track", "args", "_rf", "_t0",
+                 "_p0")
+
+    def __init__(self, tracer, name, cat, track, args, profiling):
+        self._tracer = tracer
+        self._name = name
+        self._cat = cat
+        self._track = track
+        self.args = args
+        self._rf = torch.profiler.record_function(name) if profiling else None
+
+    def __enter__(self):
+        if self._rf is not None:
+            self._rf.__enter__()
+            self._p0 = PROFILED.now()
+        if self._tracer is not None:
+            self._t0 = self._tracer.now()
+        return self
+
+    def note(self, **args):
+        """Add arguments known only inside the span."""
+        self.args.update(args)
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._tracer is not None:
+            self._tracer.add(self._name, self._t0, self._tracer.now(),
+                             cat=self._cat, track=self._track, args=self.args)
+        if self._rf is not None:
+            PROFILED.add(self._name, self._p0, PROFILED.now(), cat=self._cat,
+                         track=self._track, args=self.args)
+            self._rf.__exit__(exc_type, exc, tb)
+        return False
+
+
+def span(tracer, name: str, *, cat: str = "", track: str = "main",
+         **args: Any):
+    """The program's emission point: a context manager timing one span.
+
+    ``tracer`` is the site's attached tracer (duck-typed: ``enabled``,
+    ``now()``, ``add(...)``) or None. With it off and the profiler not
+    recording, this is two checks and the shared no-op span. The span's
+    ``note(**args)`` adds arguments known only inside it."""
+    on = tracer is not None and tracer.enabled
+    profiling = _profiler_enabled()
+    if not (on or profiling):
+        return _NULL_SPAN
+    return _ProgramSpan(tracer if on else None, name, cat, track, args,
+                        profiling)

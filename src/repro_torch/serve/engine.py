@@ -381,12 +381,15 @@ class BatchingEngine:
             delete_fn = delete_fn or getattr(index, "delete", None)
             compact_fn = compact_fn or getattr(index, "compact", None)
             fetch_stats_fn = getattr(index, "fetch_stats", None)
-            # streamed indexes: hang the engine's tracer on the host-side
-            # page fetcher so per-hop fetch callbacks show up as child
-            # spans of the dispatch that triggered them
+            # hang the engine's tracer on the index, and on a streamed
+            # index's host-side page fetcher, so the search's phases and
+            # per-hop fetch callbacks show up as child spans of the
+            # dispatch that triggered them
             fetcher = getattr(index, "fetcher", None)
             if fetcher is not None and self._tracer is not None:
                 fetcher.tracer = self._tracer
+            if hasattr(index, "tracer") and self._tracer is not None:
+                index.tracer = self._tracer
         else:
             fetch_stats_fn = None
         if search_fn is None or dim is None:
