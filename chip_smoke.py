@@ -14,7 +14,10 @@ version. Phases, one JSON line each:
             quickstart's d = 32 records at capacity 28, M = 8), with times;
             the masked (filtered) and staged (streamed) page-scan variants,
             all eight also at Q = 64; the members-only scores must equal
-            the ADC variants' bit for bit on the same records
+            the ADC variants' bit for bit on the same records; ``pq_lut``'s
+            ADC tables at the e2e shapes (1,000 queries at d = 128, M = 16
+            and 32) and at d = 2048, one launch a call, its peak beside
+            the plain version's
   sift1m    the kernels on SIFT1M-size state: 1,000,000 vectors at d = 128
             in HYBRID pages (about 2 GB of records on the device), and one
             streamed hop with 25% of those pages on the card and the rest
@@ -111,8 +114,9 @@ version. Phases, one JSON line each:
   e2e_disk_only  the same in DISK_ONLY (3,000 vectors, the paper's mode
             for a memory ratio near 0%: the on-page ADC is the only
             neighbour estimate): recall@10 >= 0.90, kernels = plain, one
-            ``hamming`` and one ``pq_adc`` launch a search (the entries:
-            no re-score in the hop loop), its memory bytes beside
+            ``hamming``, one ``pq_lut`` (the disk table alone) and one
+            ``pq_adc`` launch a search (the entries: no re-score in the
+            hop loop), its memory bytes beside
             HYBRID's; streamed at 0.25 and at one resident page
             (``MemoryBudget(bytes=1)``), each equal to the resident search
             exactly, with pages fetched, fetch ms a hop and QPS beside the
@@ -125,7 +129,8 @@ version. Phases, one JSON line each:
   quickstart  ``examples/quickstart_torch.py``'s ``main`` on the card at
             its default 5,000 vectors (d = 32, ``pq_subspaces=8``,
             capacity 28): recall@10 >= 0.90, the example's own bit-identical
-            reload, ``page_scan``, ``pq_adc`` and ``hamming`` launched; then
+            reload, ``page_scan``, ``pq_adc``, ``hamming`` and ``pq_lut``
+            launched; then
             1,000 queries over its index through the kernels and the plain
             versions (ids >= 99%)
   stream    each e2e index saved and reloaded under a 0.25 memory budget:
@@ -313,6 +318,9 @@ KERNELS = {
                     "src/repro/kernels/l2dist.py:33"),
     "page_gather_l2": ("src/repro_torch/kernels/csrc/page_gather.cu",
                        "src/repro/kernels/page_gather.py:36"),
+    # replaces no TPU kernel: the reference builds its tables in plain jnp
+    "pq_lut": ("src/repro_torch/kernels/csrc/pq_lut.cu",
+               "none (plain jnp: src/repro/core/pq.py:82)"),
 }
 
 
@@ -327,6 +335,7 @@ PATHS = {
     "l2_distance": "mutable (the delta scan)",
     "page_gather_l2": "baselines (the DiskANN search's exact rerank)",
     "hamming_distances": "kernels (its only caller is ops.hamming)",
+    "pq_lut": "e2e (two tables a search)",
 }
 
 
@@ -593,6 +602,53 @@ def _pq_adc_case(s: Smoke, codes, lut, reps: int) -> dict:
         **_bound(bytes_, ops_),
         library_ms=s.time_ms(
             lambda: F.embedding_bag(flat_idx, table, mode="sum"), 50),
+    )
+
+
+def _pq_lut_case(s: Smoke, q, books, reps: int) -> dict:
+    """``pq_lut`` against its plain version (rtol = atol = 1e-5), one launch
+    a call, and the device bytes each allocates beyond its (Q, M, K)
+    output: the kernel none, the plain version its two (Q, M, K, dsub)
+    terms."""
+    torch = s.torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline as rf
+
+    nq, d = q.shape
+    m, k, dsub = books.shape
+    before = ops.launch_counts()["pq_lut"]
+    got = ops.pq_lut(q, books)
+    launches = ops.launch_counts()["pq_lut"] - before
+    if launches != 1:
+        raise AssertionError(f"pq_lut: {launches} launches in one call, not 1")
+    err = s.compare("pq_lut", got, ops.pq_lut(q, books, impl="plain"),
+                    atol=1e-5)
+    out_bytes = got.numel() * 4
+    del got
+
+    def grown(impl):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = ops.pq_lut(q, books, impl=impl)
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base - out_bytes
+
+    extra = grown(None)
+    if extra > 1 << 20:
+        raise AssertionError(f"pq_lut: allocates {extra} bytes beyond its "
+                             "output")
+    bytes_, ops_ = rf.pq_lut_counts(nq, m, k, dsub)
+    return dict(
+        name="pq_lut", q=nq, d=d, m=m, k=k, dsub=dsub, max_abs_err=err,
+        launches=launches, extra_bytes=extra, plain_extra_bytes=grown("plain"),
+        ms=s.time_ms(lambda: ops.pq_lut(q, books), reps),
+        call_ms=s.call_ms(lambda: ops.pq_lut(q, books), reps),
+        plain_ms=s.time_ms(lambda: ops.pq_lut(q, books, impl="plain"),
+                           max(3, reps // 5)),
+        **_bound(bytes_, ops_),
+        library_ms=None,
     )
 
 
@@ -898,6 +954,19 @@ def phase_kernels(s: Smoke, cfg_hybrid, cfg_memall, n_vectors: int,
         rng.random((n_queries, m_disk, 256)).astype(np.float32)).to(dev)
     cases.append(_pq_adc_gather_case(s, lsh_pq, top, lut_disk, 50))
     cases.append(_pq_adc_case(s, lsh_pq[top].contiguous(), lut_disk, 50))
+    # the ADC tables: the e2e search's disk (M) and in-memory (2 M) tables,
+    # then the RAG path's d = 2048; the in-memory table's row goes to the
+    # kernels line
+    for dim, m in ((cfg_hybrid.dim, m_disk), (cfg_hybrid.dim, m_mem),
+                   (2048, 16), (2048, 32)):
+        qv = torch.as_tensor(rng.standard_normal(
+            (n_queries, dim)).astype(np.float32)).to(dev)
+        books = torch.as_tensor(rng.standard_normal(
+            (m, cfg_hybrid.pq_ksub, dim // m)).astype(np.float32)).to(dev)
+        row = _pq_lut_case(s, qv, books, 50)
+        if (dim, m) == (cfg_hybrid.dim, m_mem):
+            s.rows["pq_lut"] = row
+        cases.append(row)
 
     words = cfg_hybrid.lsh_bits // 32
     lsh = torch.as_tensor(rng.integers(
@@ -1275,6 +1344,11 @@ def run_e2e(cfg, n: int, n_queries: int, *, device: str, seed: int,
     if device == "cuda" and launches["hamming"] != 1:
         raise AssertionError(f"{label}: {launches['hamming']} hamming launches "
                              "in one search, not 1")
+    # the disk table, and the in-memory table outside DISK_ONLY
+    tables = 1 if cfg.memory_mode.value == "disk_only" else 2
+    if device == "cuda" and launches["pq_lut"] != tables:
+        raise AssertionError(f"{label}: {launches['pq_lut']} pq_lut launches "
+                             f"in one search, not {tables}")
     if profile is not None and profile["routing_sorts"]:
         raise AssertionError(f"{label}: the routing still sorts (Q, S) "
                              "distances")
@@ -1967,7 +2041,7 @@ def run_disk_only(cfg, *, device: str, seed: int, n: int = N_DISKONLY,
         raise AssertionError(f"e2e_disk_only: {run['launches']['pq_adc']} "
                              "pq_adc launches in one search, not 1")
     launches = {k: run["launches"][k] for k in ("page_scan", "pq_adc",
-                                                "hamming")}
+                                                "hamming", "pq_lut")}
     for budget, label in ((BUDGET, "stream_disk_only"),
                           (ONE_PAGE, "stream_disk_only_one_page")):
         stream = run_stream(ctx, device=device, label=label, budget=budget)
@@ -2038,7 +2112,7 @@ def run_quickstart(*, device: str, seed: int, n: int = 5000) -> dict:
         raise AssertionError(f"quickstart: kernel and plain paths agree on "
                              f"ids for only {agree:.4f} of queries")
     if device == "cuda":
-        never = [k for k in ("page_scan", "pq_adc", "hamming")
+        never = [k for k in ("page_scan", "pq_adc", "hamming", "pq_lut")
                  if not launches[k]]
         if never:
             raise AssertionError(f"quickstart: {never} never launched")
@@ -4696,7 +4770,7 @@ def _main(args, torch, t_start, started: list) -> int:
                 f"HYBRID recall@10 {run['recall_at_10']} < {MIN_RECALL}")
         if hybrid:
             hybrid_memory_bytes = run["stats"]["memory_bytes"]
-        names = (("page_scan", "pq_adc", "hamming") if hybrid
+        names = (("page_scan", "pq_adc", "hamming", "pq_lut") if hybrid
                  else ("page_scan_members",))
         for name in names:
             launches[name] = run["launches"][name]

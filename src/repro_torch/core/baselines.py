@@ -260,7 +260,7 @@ def baseline_search(
     """Search a batch of queries, (Q, d) f32 on the data's device.
     ``impl="plain"`` runs the kernels' plain versions (the tests and the
     chip smoke compare the two)."""
-    lut = pq_mod.pq_lut(queries, data.codebooks)               # (Q, M, K)
+    lut = ops.pq_lut(queries, data.codebooks, impl=impl)       # (Q, M, K)
     s = _init_state(queries, data, lut, beam=beam, k=k, impl=impl)
     while True:
         lanes = _active(s, max_hops).nonzero().squeeze(1)

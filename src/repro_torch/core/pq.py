@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ref
 
 
 def _sq_dists(sub: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
@@ -90,10 +91,9 @@ def pq_encode(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
 
 def pq_lut(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Per-query ADC lookup tables. q: (Q, d), codebooks (M, ksub, dsub)
-    -> (Q, M, ksub) squared sub-distances."""
-    m, _, dsub = codebooks.shape
-    qs = q.reshape(q.shape[0], m, 1, dsub)
-    return ((qs - codebooks[None]) ** 2).sum(-1)
+    -> (Q, M, ksub) squared sub-distances (``kernels.ref.pq_lut_ref``, the
+    plain version of ``kernels.ops.pq_lut``)."""
+    return ref.pq_lut_ref(q, codebooks)
 
 
 def adc_distance(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:

@@ -58,7 +58,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import pq as pq_mod
 from repro_torch.core.config import MemoryMode, SearchParams
 from repro_torch.core.filter import CompiledFilter, MetaArrays, filter_mask
 from repro_torch.core.layout import MemoryTier, PageStore
@@ -571,10 +570,10 @@ def _start(
 ) -> tuple[BeamState, torch.Tensor, torch.Tensor | None]:
     """The ADC tables and the routed initial state: (state, disk_lut,
     mem_lut)."""
-    disk_lut = pq_mod.pq_lut(queries, data.disk_codebooks)   # (Q, M_disk, K)
+    disk_lut = ops.pq_lut(queries, data.disk_codebooks, impl=impl)  # (Q, M_disk, K)
     # the finer in-memory tables are dead weight in DISK_ONLY mode
     mem_lut = (
-        pq_mod.pq_lut(queries, data.mem_codebooks)            # (Q, M_mem, K)
+        ops.pq_lut(queries, data.mem_codebooks, impl=impl)        # (Q, M_mem, K)
         if kn.mode != MemoryMode.DISK_ONLY.value
         else None
     )

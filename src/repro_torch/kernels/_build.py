@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("page_scan.cu", "pq_adc.cu", "hamming.cu", "l2_distance.cu",
-           "page_gather.cu")
+           "page_gather.cu", "pq_lut.cu")
 HEADERS = ("member_l2.cuh",)   # included by the sources; part of the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "pageann_l2_distance": [_P] * 4 + [_I] * 3 + [_P],
     "pageann_l2_distance_blocks_per_sm": [_P],
     "pageann_page_gather_l2": [_P] * 4 + [_I] * 6 + [_P],
+    "pageann_pq_lut": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 # launches of each kernel since the last reset: every wrapper adds one where
@@ -53,7 +54,7 @@ LAUNCHES = {
         "page_scan", "page_scan_members", "page_scan_masked",
         "page_scan_members_masked", "page_scan_recs", "page_scan_recs_members",
         "page_scan_recs_masked", "page_scan_recs_members_masked",
-        "pq_adc", "hamming", "l2_distance", "page_gather_l2",
+        "pq_adc", "hamming", "l2_distance", "page_gather_l2", "pq_lut",
     )
 }
 

@@ -17,6 +17,7 @@ from repro_torch.kernels import l2_distance as l2_distance_k
 from repro_torch.kernels import page_gather as page_gather_k
 from repro_torch.kernels import page_scan as page_scan_k
 from repro_torch.kernels import pq_adc as pq_adc_k
+from repro_torch.kernels import pq_lut as pq_lut_k
 
 reset_launch_counts = _build.reset_launch_counts
 launch_counts = _build.launch_counts
@@ -48,6 +49,16 @@ def hamming_topk(codes: torch.Tensor, qcodes: torch.Tensor, t: int, *,
     if _use_kernel(impl, codes):
         return hamming_k.hamming_topk(codes, qcodes, t)
     return ref.hamming_topk_ref(codes, qcodes, t)
+
+
+def pq_lut(q: torch.Tensor, codebooks: torch.Tensor, *,
+           impl: str | None = None) -> torch.Tensor:
+    """(Q, d) f32 queries, (M, K, dsub) f32 codebooks -> (Q, M, K) f32 ADC
+    tables, each entry the squared distance of a query's subspace slice to
+    one centroid. The kernel never writes the (Q, M, K, dsub) terms."""
+    if _use_kernel(impl, q):
+        return pq_lut_k.pq_lut(q.contiguous(), codebooks.contiguous())
+    return ref.pq_lut_ref(q, codebooks)
 
 
 def pq_adc(codes: torch.Tensor, lut: torch.Tensor, *,

@@ -84,6 +84,15 @@ def page_gather_l2_ref(pages: torch.Tensor, page_ids: torch.Tensor,
     return (diff * diff).sum(-1)
 
 
+def pq_lut_ref(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """ADC lookup tables. q: (Q, d), codebooks: (M, K, dsub) -> (Q, M, K)
+    squared sub-distances (``core.pq.pq_lut`` returns this); writes the
+    (Q, M, K, dsub) difference and its square before the sum."""
+    m, _, dsub = codebooks.shape
+    qs = q.reshape(q.shape[0], m, 1, dsub)
+    return ((qs - codebooks[None]) ** 2).sum(-1)
+
+
 def pq_adc_ref(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """ADC distance. codes: (Q, N, M) uint8, lut: (Q, M, K) f32 -> (Q, N)
     f32, the sum over subspaces j of ``lut[q, j, codes[q, n, j]]``."""

@@ -240,6 +240,12 @@ def pq_adc_counts(nq: int, n: int, m: int, k: int) -> tuple:
     return n * nq * m + nq * m * k * 4 + nq * n * 4, nq * n * m
 
 
+def pq_lut_counts(nq: int, m: int, k: int, dsub: int) -> tuple:
+    """``pq_lut``: the queries, the codebooks and the (nq, m, k) tables
+    once; a subtract, a multiply and an add a coordinate."""
+    return (nq * m * dsub + m * k * dsub + nq * m * k) * 4, 3 * nq * m * k * dsub
+
+
 def pq_adc_gather_counts(nq: int, n: int, m: int, k: int, *, rows: int,
                          id_bytes: int = 4) -> tuple:
     """``pq_adc_gather``: each query's table, each id, each distinct code

@@ -11,7 +11,9 @@ sums in another order than the plain version; ``hamming`` and
 ``hamming_topk`` are exact, and so
 are a staged record against the same record read by page id and the
 members-only scores against the ADC variant's (every variant sums a member
-in one order). ``l2_distance`` computes the expanded form
+in one order). ``pq_lut`` is held to its plain version at rtol = atol =
+1e-5 and equals a serial float32 sum exactly. ``l2_distance`` computes the
+expanded form
 ``(|q|^2 - 2 q.x) + |x|^2``, whose rounding error scales with the norms:
 it is held to rtol 1e-5 and atol 1e-6 (max|q|^2 + max|x|^2).
 """
@@ -342,6 +344,68 @@ def test_pq_adc_kernel_clamps_codes_to_k(cuda):
     np.testing.assert_array_equal(ops.pq_adc(tt[ti], tl).cpu().numpy(), want)
 
 
+# (queries, d, M, K) for pq_lut: the cells' tables (d = 128 and 192, M = 16
+# and 32), the RAG path's d = 2048 (a codebook staged in chunks), one query,
+# queries that leave a tile part-filled, and K that is not a multiple of 4
+LUT_CASES = [(1000, 128, 16, 256), (1000, 128, 32, 256), (1000, 192, 16, 256),
+             (1000, 192, 32, 256), (300, 2048, 16, 256), (300, 2048, 32, 256),
+             (1, 128, 16, 256), (37, 192, 32, 256), (70, 96, 8, 100),
+             (5, 24, 3, 17)]
+
+
+def lut_serial(q, books):
+    """The kernel's sums in numpy: for j = 0 .. dsub-1 in order, the
+    float32 difference, its float32 square, and a float32 running sum."""
+    m, k, dsub = books.shape
+    qs = q.reshape(q.shape[0], m, 1, dsub)
+    acc = np.zeros((q.shape[0], m, k), np.float32)
+    for j in range(dsub):
+        t = qs[..., j] - books[None, :, :, j]
+        acc = acc + t * t
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,d,m,k", LUT_CASES)
+def test_pq_lut_kernel_matches_plain(cuda, nq, d, m, k):
+    """The tables against the plain formula (rtol = atol = 1e-5: PyTorch's
+    reduction sums in another order) and bit for bit against a serial
+    float32 sum; each call is one ``pq_lut`` launch and nothing else."""
+    rng = np.random.default_rng(nq * 7 + d + m + k)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    books = rng.standard_normal((m, k, d // m)).astype(np.float32)
+    tq, tb = torch.as_tensor(q).to(cuda), torch.as_tensor(books).to(cuda)
+    before = ops.launch_counts()
+    got = ops.pq_lut(tq, tb)
+    after = ops.launch_counts()
+    assert after["pq_lut"] == before["pq_lut"] + 1
+    assert {n: v for n, v in after.items() if n != "pq_lut"} == \
+        {n: v for n, v in before.items() if n != "pq_lut"}
+    assert got.shape == (nq, m, k) and got.dtype == torch.float32
+    torch.testing.assert_close(got, ops.pq_lut(tq, tb, impl="plain"),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.cpu().numpy(), lut_serial(q, books))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 32])
+def test_pq_lut_kernel_allocates_nothing_but_its_output(cuda, m):
+    """At a cell's batch (10,000 queries, d = 192) the device memory grows
+    by the (Q, M, K) tables and at most 1 MiB more: no (Q, M, K, dsub)
+    intermediate exists."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    q = torch.randn((10_000, 192), generator=gen, device=cuda)
+    books = torch.randn((m, 256, 192 // m), generator=gen, device=cuda)
+    ops.pq_lut(q[:8], books)           # the library is loaded, not timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    out = ops.pq_lut(q, books)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(cuda) - base
+    assert out.numel() * 4 <= grew <= out.numel() * 4 + 2**20
+
+
 @pytest.mark.cuda
 def test_hamming_kernel_matches_plain_exactly(cuda):
     rng = np.random.default_rng(1)
@@ -610,6 +674,22 @@ def card_index():
                         pq_subspaces=8, lsh_sample=256, lsh_entries=8,
                         beam_width=48, max_hops=48, memory_mode=MemoryMode.HYBRID)
     return PageANNIndex.build(x, cfg, device="cuda"), query_vectors(x, 200, seed=1)
+
+
+@pytest.mark.cuda
+def test_search_builds_its_tables_in_pq_lut(card_index):
+    """A HYBRID search launches ``pq_lut`` once a table (disk and in-memory)
+    and the profiled search does the same; the plain route launches none."""
+    index, q = card_index
+    ops.reset_launch_counts()
+    index.search(q, k=10)
+    assert ops.launch_counts()["pq_lut"] == 2
+    ops.reset_launch_counts()
+    index.profile(q)
+    assert ops.launch_counts()["pq_lut"] == 2
+    ops.reset_launch_counts()
+    index.search(q, k=10, impl="plain")
+    assert ops.launch_counts()["pq_lut"] == 0
 
 
 ADAPTIVE_CASES = [dict(patience=1), dict(patience=2, epsilon=0.05),

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import pq as jpq
 from repro.core.search import _top_k_merge as jax_top_k_merge
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -27,12 +28,14 @@ from repro.kernels.page_gather import page_gather_l2 as pallas_page_gather_l2
 from repro.kernels.page_scan import page_scan as pallas_page_scan
 from repro.kernels.page_scan import page_scan_recs as pallas_page_scan_recs
 from repro.kernels.pq_adc import pq_adc as pallas_pq_adc
+from repro_torch.core import pq as tpq
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import hamming as hamming_k
 from repro_torch.kernels import l2_distance as l2_distance_k
 from repro_torch.kernels import page_gather as page_gather_k
 from repro_torch.kernels import page_scan as page_scan_k
 from repro_torch.kernels import pq_adc as pq_adc_k
+from repro_torch.kernels import pq_lut as pq_lut_k
 from repro_torch.kernels import record_layout as tlayout
 from repro_torch.kernels import ref as tref
 from test_torch_cuda import L2_CASES, PAGE_CASES, l2_atol, l2_inputs
@@ -208,6 +211,96 @@ def test_pq_adc_launch_plan_sizes_the_block_to_the_rows():
     assert pq_adc_k.launch_plan(1000, 240, 32, 256)[:2] == (1000, 256)
     assert pq_adc_k.launch_plan(1000, 16, 16, 256)[:2] == (1000, 32)
     assert pq_adc_k.launch_plan(1000, 16, 16, 256).smem_bytes == 16 * 1024
+
+
+# ------------------------------------------------------------- pq_lut
+@pytest.mark.parametrize("nq,d,m,k", [(5, 32, 8, 256), (3, 128, 16, 256),
+                                      (2, 192, 32, 256), (4, 24, 3, 17)])
+def test_pq_lut_on_cpu_is_the_plain_formula_bit_for_bit(nq, d, m, k):
+    """CPU tensors take the plain version, ``core.pq.pq_lut``'s formula bit
+    for bit, with or without ``impl="plain"``, and count no launch; the
+    JAX reference's tables agree within rtol = atol = 1e-5."""
+    rng = np.random.default_rng(nq * 10 + d + m)
+    q = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32))
+    books = torch.as_tensor(rng.standard_normal((m, k, d // m)).astype(np.float32))
+    ops.reset_launch_counts()
+    got = ops.pq_lut(q, books)
+    want = tpq.pq_lut(q, books)
+    assert got.shape == (nq, m, k) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(ops.pq_lut(q, books, impl="plain"), want)
+    assert torch.equal(tref.pq_lut_ref(q, books), want)
+    assert not any(ops.launch_counts().values())
+    for i in range(nq):
+        np.testing.assert_allclose(
+            got[i].numpy(),
+            np.asarray(jpq.pq_lut(jnp.asarray(q[i].numpy()),
+                                  jnp.asarray(books.numpy()))), **TOL)
+    with pytest.raises(ValueError, match="impl"):
+        ops.pq_lut(q, books, impl="cuda")
+
+
+@pytest.mark.parametrize("q_shape,q_dtype,b_shape,b_dtype,match", [
+    ((4, 32), torch.float64, (8, 256, 4), torch.float32, "float32"),
+    ((4, 32), torch.float32, (8, 256, 4), torch.float16, "float32"),
+    ((4, 8, 4), torch.float32, (8, 256, 4), torch.float32, r"\(Q, d\)"),
+    ((4, 32), torch.float32, (256, 32), torch.float32, r"\(M, K, dsub\)"),
+    ((4, 30), torch.float32, (8, 256, 4), torch.float32, "split"),
+    ((4, 32), torch.float32, (8, 256, 4), torch.float32, "CUDA"),
+])
+def test_pq_lut_kernel_wrapper_refuses_what_it_cannot_take(
+        q_shape, q_dtype, b_shape, b_dtype, match):
+    """Wrong dtype, rank or width, or tensors off the card: the wrapper
+    raises before it touches the library."""
+    q = torch.zeros(q_shape, dtype=q_dtype)
+    books = torch.zeros(b_shape, dtype=b_dtype)
+    with pytest.raises(ValueError, match=match):
+        pq_lut_k.pq_lut(q, books)
+
+
+@pytest.mark.parametrize("nq,m,k,dsub,sms", [
+    (10_000, 16, 256, 8, 132), (10_000, 32, 256, 4, 132),
+    (10_000, 16, 256, 12, 132), (10_000, 32, 256, 6, 132),
+    (1000, 16, 256, 128, 132), (1000, 32, 256, 64, 132), (1, 16, 256, 8, 132),
+    (37, 32, 256, 6, 132), (70, 8, 100, 12, 132), (5, 3, 17, 8, 132),
+    (3, 2, 1024, 300, 132), (45, 2, 256, 60, 1), (300, 4, 64, 6, 2)])
+def test_pq_lut_launch_plan_writes_every_entry_once(nq, m, k, dsub, sms):
+    """Threads are whole rows of four k (at most MAX_THREADS); the shared
+    memory stays in its budget; a block takes 32 queries at the cells'
+    batch, fewer while the blocks would not fill two an SM; and, at the
+    smaller shapes, walking the grid as the kernel does (block -> subspace
+    and query tile, thread -> row and first k, pass i -> query i x rows +
+    row) writes every (query, m, k) exactly once."""
+    plan = pq_lut_k.launch_plan(nq, m, k, dsub, sms=sms)
+    k4n = -(-k // 4)
+    assert plan.threads == plan.rows * k4n <= pq_lut_k.MAX_THREADS
+    assert plan.passes in (1, 2, 4, 8) and 1 <= plan.chunk <= dsub
+    assert plan.smem_bytes <= pq_lut_k.SMEM_BUDGET
+    tile = plan.rows * plan.passes
+    assert plan.grid == m * -(-nq // tile)
+    assert plan.passes == 1 or plan.grid >= 2 * sms
+    if nq == 10_000:      # the cells: 32 queries a block, one chunk
+        assert (tile, plan.chunk) == (32, dsub)
+    if nq * m * k > 2_000_000:
+        return
+    hits = np.zeros((nq, m, k), np.int64)
+    tid = np.arange(plan.threads)
+    row, k0 = tid // k4n, 4 * (tid % k4n)
+    for blk in range(plan.grid):
+        sub, q0 = blk % m, (blk // m) * tile
+        for i in range(plan.passes):
+            qi = q0 + i * plan.rows + row
+            for x in range(4):
+                ok = (qi < nq) & (k0 + x < k)
+                np.add.at(hits, (qi[ok], sub, k0[ok] + x), 1)
+    assert (hits == 1).all()
+
+
+def test_pq_lut_launch_plan_refuses_k_and_dsub_out_of_range():
+    with pytest.raises(ValueError, match="K must be"):
+        pq_lut_k.launch_plan(10, 16, 4 * pq_lut_k.MAX_THREADS + 1, 8)
+    with pytest.raises(ValueError, match="dsub"):
+        pq_lut_k.launch_plan(10, 16, 256, 0)
 
 
 # ------------------------------------------------------------- hamming
@@ -586,12 +679,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.l2_distance(t[2], t[2])
     ops.page_gather_l2(torch.zeros((2, 4, 16)), t[1] % 2, t[2])
     ops.delta_scan(t[2], t[2], torch.ones(3, dtype=torch.bool), 2)
+    ops.pq_lut(t[2], torch.zeros((4, 256, 4)))
     counts = ops.launch_counts()
     assert set(counts) == {
         "page_scan", "page_scan_members", "page_scan_masked",
         "page_scan_members_masked", "page_scan_recs", "page_scan_recs_members",
         "page_scan_recs_masked", "page_scan_recs_members_masked", "pq_adc",
-        "hamming", "l2_distance", "page_gather_l2"}
+        "hamming", "l2_distance", "page_gather_l2", "pq_lut"}
     assert not any(counts.values())
 
 
