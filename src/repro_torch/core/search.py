@@ -29,7 +29,8 @@ Each phase is a span (``obs.trace.span``, on the ``search`` track):
 ``pageann.start`` (LUTs and routing), and one ``pageann.hop`` a loop
 iteration, with its ``hop`` index and active ``lanes``, holding
 ``pageann.hop.sync`` (the blocking ``nonzero``) and, when a lane is active,
-``pageann.hop.select``, ``pageann.hop.score`` and ``pageann.hop.merge``.
+``pageann.hop.select``, ``pageann.hop.score`` and ``pageann.hop.merge``;
+a streamed search's ``pageann.hop.score`` holds ``pageann.hop.fetch``.
 
 Streamed search (``stream_search``) keeps only part of the page records on
 the device. Each hop looks its pages up in ``resident_map``, reads the
@@ -329,8 +330,9 @@ class PinnedStage:
         self.fetcher = fetcher
         self._buf: torch.Tensor | None = None
 
-    def __call__(self, ids: torch.Tensor) -> torch.Tensor:
-        """ids: (n,) page ids on the device -> (n, rows, 128) f32 there."""
+    def __call__(self, ids: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """ids: (n,) page ids on the device -> ((n, rows, 128) f32 there,
+        the pages the fetcher read off its file for them)."""
         dev = ids.device
         ids_np = ids.cpu().numpy()
         rows, lanes = self.fetcher.record_shape
@@ -338,8 +340,8 @@ class PinnedStage:
             size = max(ids_np.size, 2 * (0 if self._buf is None else self._buf.shape[0]))
             self._buf = torch.empty((size, rows, lanes), dtype=torch.float32,
                                     pin_memory=dev.type == "cuda")
-        self.fetcher(ids_np, out=self._buf.numpy())
-        return self._buf[: ids_np.size].to(dev, non_blocking=True)
+        _, misses = self.fetcher.read(ids_np, out=self._buf.numpy())
+        return self._buf[: ids_np.size].to(dev, non_blocking=True), misses
 
 
 def score_page_batch(
@@ -356,6 +358,7 @@ def score_page_batch(
     meta: MetaArrays | None = None,
     cfilter: CompiledFilter | None = None,
     impl: str | None = None,
+    tracer=None,
 ):
     """Batched page-record read (Fig. 6 steps 2-4, THE I/O) -> both score
     sets from one read of each page.
@@ -370,7 +373,12 @@ def score_page_batch(
     ``page_scan`` at their rows in it; the others are fetched from the host
     into a zeroed (Q, b, rows, 128) staging tensor and scored by
     ``page_scan_recs``, the same per-record kernel code; the two merge per
-    lane, so every score equals the resident search's bit for bit.
+    lane, so every score equals the resident search's bit for bit. The
+    missing ids' trip to the host, the fetch, the copy to the device and
+    its scatter into the staging tensor are the span ``pageann.hop.fetch``
+    (into ``tracer``), with the hop's page reads (``lanes``), those not
+    resident (``streamed``), the fetcher's reads off its file for them
+    (``misses``) and the bytes copied to the device (``bytes``).
 
     With a filter (``meta`` + ``cfilter``), the predicate is evaluated over
     the batch's metadata and pushed into the scan as a member mask:
@@ -404,7 +412,14 @@ def score_page_batch(
         miss = fetched & ~resident
         staged = torch.zeros((nq, b, *data.page_recs.shape[1:]),
                              dtype=torch.float32, device=dev)
-        staged[miss] = fetch(safe[miss])     # row-major: the fetch order
+        with span(tracer, "pageann.hop.fetch", cat=TRACK, track=TRACK) as sp:
+            recs, misses = fetch(safe[miss])     # row-major: the fetch order
+            staged[miss] = recs
+            if sp.recording:
+                sp.note(lanes=int(fetched.sum()), streamed=recs.shape[0],
+                        misses=misses,
+                        bytes=recs.numel() * recs.element_size())
+            del recs            # in ``staged`` now: free it before the scans
         ex_r, est_r = ops.page_scan(
             data.page_recs, torch.where(resident, slot, 0), q, disk_lut, **kw)
         ex_s, est_s = ops.page_scan_recs(staged, q, disk_lut, **kw)
@@ -617,7 +632,7 @@ def _hop(
     with span(tracer, "pageann.hop.score", cat=TRACK, track=TRACK):
         scored = score_page_batch(
             q, data, batch, sub, dl, ml, capacity=kn.capacity, mode=kn.mode,
-            fetch=fetch, meta=meta, cfilter=cfilter, impl=impl,
+            fetch=fetch, meta=meta, cfilter=cfilter, impl=impl, tracer=tracer,
         )
     with span(tracer, "pageann.hop.merge", cat=TRACK, track=TRACK):
         sub = merge(sub, *scored, patience=kn.patience, epsilon=kn.epsilon)

@@ -96,6 +96,12 @@ class PageFetcher:
         return int(self._recs.shape[1]), int(self._recs.shape[2])
 
     def __call__(self, ids, out: np.ndarray | None = None) -> np.ndarray:
+        return self.read(ids, out)[0]
+
+    def read(self, ids, out: np.ndarray | None = None
+             ) -> tuple[np.ndarray, int]:
+        """``self(ids, out)`` and the staging-cache misses of this call:
+        the pages it read off the memmap."""
         with span(self.tracer, "page_fetch", cat="host-fetch",
                   track="host-fetch") as sp:
             t0 = time.perf_counter()
@@ -131,7 +137,7 @@ class PageFetcher:
                 misses = self._pages_fetched - fetched0
                 hits = self._fetch_hits - hits0
             sp.note(requested=misses + hits, misses=misses)
-        return out.reshape(ids.shape + (rows, lanes))
+        return out.reshape(ids.shape + (rows, lanes)), misses
 
     # ------------------------------------------------------------- counters
     def fetch_stats(self) -> dict:

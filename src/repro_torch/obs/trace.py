@@ -9,7 +9,8 @@ through :func:`span`: the streamed tier's ``core.stream.PageFetcher`` one
 phases on the ``search`` track: ``pageann.search`` around each
 ``PageANNIndex.search``, inside it ``pageann.upload``, ``pageann.start``,
 one ``pageann.hop`` a loop iteration (its children ``pageann.hop.sync``,
-``pageann.hop.select``, ``pageann.hop.score``, ``pageann.hop.merge``) and
+``pageann.hop.select``, ``pageann.hop.score`` (holding
+``pageann.hop.fetch`` in a memory-budgeted search), ``pageann.hop.merge``) and
 ``pageann.download``. Design constraints, in order:
 
   * **~zero cost when disabled** — every emission point guards on
@@ -73,6 +74,7 @@ class _NullSpan:
     """Shared no-op context manager returned by a disabled tracer."""
 
     __slots__ = ()
+    recording = False
 
     def __enter__(self):
         return self
@@ -270,6 +272,7 @@ class _ProgramSpan:
 
     __slots__ = ("_tracer", "_name", "_cat", "_track", "args", "_rf", "_t0",
                  "_p0")
+    recording = True        # ``note`` keeps its arguments: worth computing
 
     def __init__(self, tracer, name, cat, track, args, profiling):
         self._tracer = tracer
@@ -309,7 +312,9 @@ def span(tracer, name: str, *, cat: str = "", track: str = "main",
     ``tracer`` is the site's attached tracer (duck-typed: ``enabled``,
     ``now()``, ``add(...)``) or None. With it off and the profiler not
     recording, this is two checks and the shared no-op span. The span's
-    ``note(**args)`` adds arguments known only inside it."""
+    ``note(**args)`` adds arguments known only inside it; its
+    ``recording`` is False on the no-op span, so a site can skip work
+    that only an argument needs."""
     on = tracer is not None and tracer.enabled
     profiling = _profiler_enabled()
     if not (on or profiling):

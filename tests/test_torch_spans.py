@@ -1,8 +1,10 @@
 """The search's spans (``repro_torch.obs.trace.span``) over a port index.
 
 A search with a tracer attached gives the phase tree on the ``search``
-track, one ``pageann.hop`` a loop iteration with the lanes it ran; its
-results equal an untraced search's bit for bit, resident and streamed;
+track, one ``pageann.hop`` a loop iteration with the lanes it ran, and,
+over a memory-budgeted index, one ``pageann.hop.fetch`` a hop with the
+hop's page reads, streamed reads, staging misses and bytes; its results
+equal an untraced search's bit for bit, resident and streamed;
 with no tracer and no profiler a site builds no span and the process
 tracer stays empty; under ``torch.profiler`` the same spans are
 ``record_function`` events of the profile and the process tracer's copies
@@ -28,6 +30,7 @@ torch.set_num_threads(1)
 N, D, Q, K = 800, 16, 24, 5
 HOP_CHILDREN = ["pageann.hop.sync", "pageann.hop.select", "pageann.hop.score",
                 "pageann.hop.merge"]
+FETCH = "pageann.hop.fetch"
 FIELDS = ("ids", "dists", "ios", "hops", "cache_hits")
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -96,7 +99,8 @@ def test_a_traced_search_gives_the_span_tree(index, streamed, which):
     """Each phase once, on the ``search`` track, nested in
     ``pageann.search``; one ``pageann.hop`` a loop iteration, numbered, its
     ``lanes`` the queries still hopping, holding its sync and (when a lane
-    ran) select, score and merge in that order."""
+    ran) select, score and merge in that order; a streamed search's score
+    holds one ``pageann.hop.fetch``, a resident one's none."""
     idx = index if which == "resident" else streamed
     q = _data()[1]
     res, spans = _traced(idx, q)
@@ -113,14 +117,20 @@ def test_a_traced_search_gives_the_span_tree(index, streamed, which):
     assert [h.args["lanes"] for h in hops] == [
         int((res.hops > h).sum()) for h in range(len(hops))]
     assert len(set(h.args["lanes"] for h in hops)) > 2    # lanes drop out
-    children = [s for s in spans if s.name.startswith("pageann.hop.")]
+    children = [s for s in spans if s.name in HOP_CHILDREN]
     for h in hops:
         assert _inside(h, search[0])
         mine = [c.name for c in children if _inside(c, h)]
         assert mine == (HOP_CHILDREN if h.args["lanes"] else HOP_CHILDREN[:1])
     assert len(children) == sum(4 if h.args["lanes"] else 1 for h in hops)
+    fetches = [s for s in spans if s.name == FETCH]
+    scores = [s for s in spans if s.name == "pageann.hop.score"]
     if which == "streamed":
         assert idx.fetcher.tracer is None
+        assert len(fetches) == len(scores)
+        assert all(_inside(f, s) for f, s in zip(fetches, scores))
+    else:
+        assert fetches == []
 
 
 @pytest.mark.parametrize("which", ["resident", "streamed"])
@@ -135,6 +145,49 @@ def test_traced_results_equal_untraced_ones(index, streamed, which):
             activities=[torch.profiler.ProfilerActivity.CPU]):
         profiled = idx.search(q, k=K)
     _equal(profiled, plain)
+
+
+def test_a_streamed_hop_is_one_fetch_span_with_its_counts(index, streamed):
+    """Each hop of a budgeted search reads its pages through one
+    ``pageann.hop.fetch``: ``lanes`` the hop's page reads and ``streamed``
+    those not resident, hop by hop as the resident index's profile
+    schedules them; ``misses`` and ``streamed`` sum to the fetcher's
+    counters; ``bytes`` is the streamed records'. Under the profiler the
+    process tracer takes the same spans. Results equal the untraced and
+    the resident search's bit for bit."""
+    q = _data()[1]
+    want, trail = index.profile(q, k=K)
+    rmap = streamed.data.resident_map.numpy()
+    pages = trail.pages.transpose(1, 0, 2)                 # (H, Q, b)
+    reads = [p[p >= 0] for p, a in zip(pages, trail.active.T) if a.any()]
+    streamed.fetcher.reset_stats()
+    res, spans = _traced(streamed, q)
+    stats = streamed.fetch_stats()
+    _equal(res, want)
+    _equal(res, streamed.search(q, k=K))
+    fetches = [s for s in spans if s.name == FETCH]
+    assert [f.args["lanes"] for f in fetches] == [r.size for r in reads]
+    assert [f.args["streamed"] for f in fetches] == [
+        int((rmap[r] < 0).sum()) for r in reads]
+    assert sum(f.args["lanes"] for f in fetches) == int(
+        res.ios.sum() + res.cache_hits.sum())
+    assert sum(f.args["misses"] for f in fetches) == stats["pages_fetched"]
+    assert sum(f.args["streamed"] for f in fetches) == (
+        stats["pages_fetched"] + stats["fetch_hits"]) > 0
+    record = int(np.prod(streamed.data.page_recs.shape[1:])) * 4
+    assert all(f.args["bytes"] == f.args["streamed"] * record
+               for f in fetches)
+    assert all(0 <= f.args["misses"] <= f.args["streamed"] <= f.args["lanes"]
+               for f in fetches)
+    PROFILED.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiled = streamed.search(q, k=K)
+    _equal(profiled, want)
+    got = [s for s in PROFILED.spans() if s.name == FETCH]
+    assert [g.args["lanes"] for g in got] == [f.args["lanes"] for f in fetches]
+    assert [g.args["streamed"] for g in got] == [
+        f.args["streamed"] for f in fetches]
 
 
 def test_with_no_tracer_and_no_profiler_a_site_builds_nothing(
