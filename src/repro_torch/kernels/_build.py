@@ -8,6 +8,12 @@ sources and flags, and loaded with ``ctypes``. A library already built from
 the same sources is reused. Nothing here runs at import time: a host
 without ``nvcc`` imports the package and only fails when a kernel is asked
 for.
+
+One host routine, ``csrc/page_fetch.cpp`` (the streamed tier's page gather,
+``core.stream.PageFetcher``), is built the same way by the host's C++
+compiler into its own library under ``build/torch_host/``, also named by a
+hash of its source and flags. A host with no C++ compiler gets ``None`` from
+:func:`host_library`, and the fetcher reads through its plain loop.
 """
 from __future__ import annotations
 
@@ -32,8 +38,14 @@ NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
+HOST_SOURCES = ("page_fetch.cpp",)
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
+CXX_NAMES = ("c++", "g++")   # the host compiler, the first found on PATH
+HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C entry points: name -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
     "pageann_page_scan": [_P] * 7 + [_I] * 17 + [_P],
@@ -45,6 +57,13 @@ _SIGNATURES = {
     "pageann_l2_distance_blocks_per_sm": [_P],
     "pageann_page_gather_l2": [_P] * 4 + [_I] * 6 + [_P],
     "pageann_pq_lut": [_P] * 3 + [_I] * 8 + [_P],
+}
+
+# host entry points: name -> (argument types, return type)
+_HOST_SIGNATURES = {
+    "pageann_stage_new": ([_L], _P),
+    "pageann_stage_free": ([_P], None),
+    "pageann_page_fetch": ([_P, _P, _L, _P, _L, _P, _P], _I),
 }
 
 # launches of each kernel since the last reset: every wrapper adds one where
@@ -68,9 +87,9 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _digest(flags=NVCC_FLAGS, names=SOURCES + HEADERS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in names:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -155,3 +174,62 @@ def check(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
+
+
+def _cxx() -> str | None:
+    for name in CXX_NAMES:
+        found = shutil.which(name)
+        if found:
+            return found
+    return None
+
+
+def host_library_path() -> Path:
+    digest = _digest(CXX_FLAGS, HOST_SOURCES)
+    return HOST_BUILD_DIR / f"libpageann_host-{digest}.so"
+
+
+def build_host() -> tuple[Path, float]:
+    """Compile the host routines if no library for these sources exists yet.
+
+    Returns the library's path and the seconds spent building (0.0 when it
+    was already there); raises if no C++ compiler is on PATH or it fails.
+    """
+    out = host_library_path()
+    if out.exists():
+        return out, 0.0
+    cxx = _cxx()
+    if cxx is None:
+        raise RuntimeError(
+            f"no C++ compiler on PATH (tried {', '.join(CXX_NAMES)}): the "
+            "host routines of repro_torch are built from source at first use"
+        )
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HOST_BUILD_DIR) as tmp:
+        lib_tmp = os.path.join(tmp, out.name)
+        proc = subprocess.run(
+            [cxx, *CXX_FLAGS, "-o", lib_tmp,
+             *(str(CSRC / name) for name in HOST_SOURCES)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building the host routines failed:\n{proc.stdout}")
+        os.replace(lib_tmp, out)
+    return out, time.perf_counter() - t0
+
+
+@functools.cache
+def host_library() -> ctypes.CDLL | None:
+    """The loaded host library (built on the first call in a process), or
+    None on a host with no C++ compiler."""
+    if not host_library_path().exists() and _cxx() is None:
+        return None
+    path, _ = build_host()
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in _HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

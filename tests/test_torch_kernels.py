@@ -745,6 +745,28 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     assert _build.library_path().name.startswith("libpageann_kernels-")
 
 
+def test_host_library_builds_once_and_is_optional(tmp_path, monkeypatch):
+    """The host routines build once per source hash and are reused from
+    then on, with or without a compiler; a host with neither a compiler
+    nor a built library gets None (the fetcher's plain loop), and an
+    explicit build there raises."""
+    monkeypatch.setattr(_build, "HOST_BUILD_DIR", tmp_path)
+    path = _build.host_library_path()
+    assert path.parent == tmp_path
+    assert path.name.startswith("libpageann_host-")
+    if _build._cxx() is not None:
+        built, seconds = _build.build_host()
+        assert built == path and path.exists() and seconds > 0.0
+        assert _build.build_host() == (path, 0.0)
+        monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+        assert _build.host_library.__wrapped__() is not None
+        path.unlink()
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="C\\+\\+ compiler"):
+        _build.build_host()
+    assert _build.host_library.__wrapped__() is None
+
+
 def test_port_imports_no_jax_and_nothing_of_repro():
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)\b(?!_)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))

@@ -10,6 +10,9 @@ nothing, where the reference's vmapped loop keeps fetching for it.
 """
 import json
 import os
+import shutil
+import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,8 @@ from repro_torch.core import (
 from repro_torch.core import lsh as tlsh
 from repro_torch.core import persist
 from repro_torch.core import stream as tstream
+from repro_torch.kernels import _build
+from repro_torch.obs import Tracer
 from torch_jax_artifacts import dataset, metadata_artifact
 
 # six test workers share the host's cores; the port's small searches gain
@@ -75,21 +80,23 @@ def test_fetcher_pad_and_shapes():
         PageFetcher(recs, stage_pages=0)
 
 
-def test_fetcher_lru_eviction_and_counters_match_the_reference():
+@pytest.mark.parametrize("impl", ["plain", None], ids=["plain", "native"])
+def test_fetcher_lru_eviction_and_counters_match_the_reference(impl):
     """A 1-page staging cache changes only the hit/miss split, never the
-    records; both packages count the same hits and misses."""
+    records; both packages count the same hits and misses, through the
+    plain loop and through the compiled routine."""
     rng = np.random.default_rng(0)
     recs = rng.standard_normal((6, 2, 8)).astype(np.float32)
     for stage in (1, 3, tstream.DEFAULT_STAGE_PAGES):
         t, j = PageFetcher(recs, stage_pages=stage), jstream.PageFetcher(recs, stage_pages=stage)
         for _ in range(20):
             ids = rng.integers(-1, 6, size=rng.integers(0, 5))
-            np.testing.assert_array_equal(t(ids), j(ids))
+            np.testing.assert_array_equal(t(ids, impl=impl), j(ids))
             for key in ("pages_fetched", "fetch_hits"):
                 assert t.fetch_stats()[key] == j.fetch_stats()[key]
     f = PageFetcher(recs, stage_pages=1)
     for pid in rng.integers(0, 6, size=64):
-        np.testing.assert_array_equal(f(np.array([pid]))[0], recs[pid])
+        np.testing.assert_array_equal(f(np.array([pid]), impl=impl)[0], recs[pid])
     fs = f.fetch_stats()
     assert fs["pages_fetched"] + fs["fetch_hits"] == 64
     assert fs["pages_fetched"] >= 6                   # capacity-1 thrashing
@@ -97,6 +104,140 @@ def test_fetcher_lru_eviction_and_counters_match_the_reference():
     f.reset_stats()
     assert f.fetch_stats() == dict(
         pages_fetched=0, fetch_hits=0, fetch_wall_s=0.0, wall_window=())
+
+
+def _native_or_skip():
+    if _build.host_library() is None:
+        pytest.skip("no C++ compiler on this host: the fetcher reads through "
+                    "its plain loop only")
+
+
+def _pair(recs, stage):
+    """A fetcher on each path over the same records."""
+    _native_or_skip()
+    return tuple(PageFetcher(recs, stage_pages=stage) for _ in range(2))
+
+
+def _counts(f):
+    fs = f.fetch_stats()
+    return fs["pages_fetched"], fs["fetch_hits"]
+
+
+def test_the_compiled_fetch_is_loaded_where_a_compiler_is():
+    """On a host with a C++ compiler the routine is built and loaded, and
+    every read of a float32 page file goes through it; the span says so."""
+    if not any(shutil.which(name) for name in _build.CXX_NAMES):
+        pytest.skip("no C++ compiler on this host")
+    assert _build.host_library() is not None
+    assert _build.host_library_path().exists()
+    recs = np.arange(4 * 2 * 8, dtype=np.float32).reshape(4, 2, 8)
+    f = PageFetcher(recs)
+    tr = Tracer()
+    f.tracer = tr
+    f(np.array([1, tstream.PAD]))
+    f.read(np.array([2]), out=np.empty((3, 2, 8), np.float32))
+    wide = np.empty((1, 2, 8), np.float64)    # through a float32 buffer
+    np.testing.assert_array_equal(f(np.array([3]), out=wide), recs[3:4])
+    assert [s.args["native"] for s in tr.spans()] == [1, 1, 1]
+    assert [s.args["requested"] for s in tr.spans()] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("stage", [1, 3, 7, tstream.DEFAULT_STAGE_PAGES])
+def test_the_compiled_fetch_equals_the_plain_loop(stage):
+    """Records bit for bit and counters equal, call after call, on one
+    staging cache each: PAD ids, leading batch axes, duplicates within a
+    call, more distinct pages in one call than the cache holds, fresh
+    arrays and a caller's buffer whose rows past the call stay as they
+    were."""
+    rng = np.random.default_rng(stage)
+    recs = rng.standard_normal((40, 3, 16)).astype(np.float32)
+    native, plain = _pair(recs, stage)
+    shapes = [(0,), (5,), (2, 7), (3, 2, 4), (60,), (1, 90)]
+    for i in range(60):
+        shape = shapes[i % len(shapes)]
+        ids = rng.integers(-1, 40, size=shape)
+        if ids.size > 2:
+            ids.flat[1] = ids.flat[0]            # a duplicate in one call
+        if i % 2:
+            got, got_m = native.read(ids)
+            want, want_m = plain.read(ids, impl="plain")
+        else:
+            bufs = [np.full((ids.size + 3, 3, 16), 9.0, np.float32)
+                    for _ in range(2)]
+            got, got_m = native.read(ids, out=bufs[0])
+            want, want_m = plain.read(ids, out=bufs[1], impl="plain")
+            assert np.shares_memory(got, bufs[0]) or not ids.size
+            np.testing.assert_array_equal(bufs[0][ids.size:], 9.0)
+            np.testing.assert_array_equal(bufs[0], bufs[1])
+        assert got.shape == want.shape == ids.shape + (3, 16)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        assert got_m == want_m and _counts(native) == _counts(plain)
+    assert native._path == "native" and plain._path == "plain"
+
+
+def test_the_compiled_fetch_takes_concurrent_readers():
+    """Readers in several threads share one staging cache: every record
+    is right and every request is counted once, as a hit or a miss."""
+    _native_or_skip()
+    rng = np.random.default_rng(5)
+    recs = rng.standard_normal((64, 2, 8)).astype(np.float32)
+    f = PageFetcher(recs, stage_pages=8)
+    batches = [rng.integers(-1, 64, size=50) for _ in range(6 * 40)]
+    bad = []
+
+    def worker(part):
+        for ids in part:
+            got = f(ids)
+            want = np.where((ids >= 0)[:, None, None], recs[ids], 0.0)
+            if not np.array_equal(got, want):
+                bad.append(ids)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(batches[k::6],))
+                   for k in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+    misses, hits = _counts(f)
+    asked = np.concatenate(batches)
+    assert misses + hits == int((asked >= 0).sum())
+    assert misses >= len(np.unique(asked[asked >= 0]))
+    assert len(f.fetch_stats()["wall_window"]) == len(batches)
+
+
+def test_the_fetch_paths_refuse_what_they_cannot_take(monkeypatch):
+    """Bad ``impl``, ids past the file, and a switch of path on one fetcher
+    raise; float64 records, and a host with no compiler, take the plain
+    loop."""
+    _native_or_skip()
+    recs = np.arange(4 * 2 * 8, dtype=np.float32).reshape(4, 2, 8)
+    f = PageFetcher(recs)
+    with pytest.raises(ValueError, match="impl"):
+        f(np.array([1]), impl="kernel")
+    with pytest.raises(IndexError, match="out of bounds"):
+        f(np.array([1, 4]))
+    assert _counts(f) == (0, 0)
+    f(np.array([1]))
+    with pytest.raises(ValueError, match="native"):   # one cache a fetcher
+        f(np.array([1]), impl="plain")
+    wide = PageFetcher(recs.astype(np.float64))
+    assert wide._lib is None
+    np.testing.assert_array_equal(wide(np.array([3, -1])),
+                                  np.stack([recs[3], 0 * recs[0]]))
+    monkeypatch.setattr(_build, "host_library", lambda: None)
+    g = PageFetcher(recs)
+    tr = Tracer()
+    g.tracer = tr
+    np.testing.assert_array_equal(g(np.array([2])), recs[2:3])
+    assert g._lib is None and tr.spans()[0].args["native"] == 0
 
 
 # ----------------------------------------------------------- MemoryBudget
